@@ -1,0 +1,184 @@
+"""The port stands alone and never falls back quietly.
+
+* glomap_tpu_torch and chip_smoke.py import neither jax nor glomap_tpu:
+  a subprocess where both are blocked imports every module, and an ast
+  scan finds no such import statement anywhere in the port's sources.
+* With device=None and no CUDA, the entry point raises instead of
+  running on the CPU.
+* A kernel whose build fails raises; its CUDA launch never hands back
+  the plain version's result.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from glomap_tpu_torch.config import BundleAdjusterOptions
+from glomap_tpu_torch.estimators import bundle_adjustment as tba
+from glomap_tpu_torch.ops import _build, kernels
+from glomap_tpu_torch.ops.kernels import SegmentAxis
+from glomap_tpu_torch.scene.arrays import Scene, Tracks
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "glomap_tpu_torch"
+PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "glomap_tpu")
+
+
+def _port_modules():
+    mods = []
+    for f in sorted(PORT.rglob("*.py")):
+        parts = f.relative_to(ROOT).with_suffix("").parts
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        mods.append(".".join(parts))
+    return mods
+
+
+def test_port_imports_without_jax():
+    """Every module, and chip_smoke, with jax and glomap_tpu blocked."""
+    code = (
+        "import sys\n"
+        "for name in %r: sys.modules[name] = None\n"
+        "import importlib\n"
+        "for m in %r: importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "assert not any(k == 'jax' or k.startswith(('jax.', 'glomap_tpu.'))\n"
+        "               for k, v in sys.modules.items() if v is not None)\n"
+        "print('ok')\n" % (FORBIDDEN, _port_modules()))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_no_jax_import_statement(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, \
+                f"{path.name}:{node.lineno} imports {name}"
+
+
+def _tiny_problem():
+    """Three frames, one PINHOLE camera, four points seen by all three."""
+    F, P = 3, 4
+    scene = Scene(
+        camera_ids=np.array([1]), cam_model_id=np.array([1], np.int32),
+        cam_params=np.array([[500.0, 500.0, 320, 240] + [0.0] * 12]),
+        cam_kind=np.zeros(1, np.int32),
+        sensor_quat=np.array([[1.0, 0, 0, 0]]), sensor_trans=np.zeros((1, 3)),
+        sensor_is_ref=np.array([True]),
+        frame_ids=np.arange(1, F + 1),
+        frame_quat=np.tile([1.0, 0, 0, 0], (F, 1)),
+        frame_trans=np.array([[0.0, 0, 0], [-1.0, 0, 0], [0, -1.0, 0]]),
+        frame_registered=np.ones(F, bool),
+        image_ids=np.arange(1, F + 1), image_frame=np.arange(F, dtype=np.int32),
+        image_camera=np.zeros(F, np.int32), image_sensor=np.zeros(F, np.int32),
+        kp_xy=300.0 + np.arange(F * P * 2, dtype=float).reshape(F * P, 2),
+        kp_offset=np.arange(0, F * P + 1, P))
+    tracks = Tracks(
+        xyz=np.array([[0.0, 0, 5], [1, 0, 6], [0, 1, 7], [1, 1, 8]]),
+        valid=np.ones(P, bool), color=np.zeros((P, 3), np.uint8),
+        obs_track=np.tile(np.arange(P, dtype=np.int32), F),
+        obs_image=np.repeat(np.arange(F, dtype=np.int32), P),
+        obs_feature=np.tile(np.arange(P, dtype=np.int32), F),
+        obs_valid=np.ones(F * P, bool))
+    return scene, tracks
+
+
+def test_default_device_without_cuda_raises(monkeypatch):
+    """device=None means CUDA; without it the solve raises and leaves the
+    scene untouched (it never carries on on the CPU)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    scene, tracks = _tiny_problem()
+    before = scene.frame_trans.copy(), tracks.xyz.copy()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tba.solve_bundle_adjustment(
+            scene, tracks, BundleAdjusterOptions(max_num_iterations=2))
+    np.testing.assert_array_equal(scene.frame_trans, before[0])
+    np.testing.assert_array_equal(tracks.xyz, before[1])
+    # the same problem does run where the CPU is asked for
+    assert tba.solve_bundle_adjustment(
+        scene, tracks, BundleAdjusterOptions(max_num_iterations=2),
+        dtype=torch.float64, device="cpu")
+
+
+class _BuildFailed(RuntimeError):
+    pass
+
+
+@pytest.fixture
+def broken_build(monkeypatch):
+    """_build raises for every kernel, and no library is loaded yet."""
+    def fail(*args, **kwargs):
+        raise _BuildFailed("nvcc failed (simulated)")
+    monkeypatch.setattr(_build, "build", fail)
+    monkeypatch.setattr(_build, "library", fail)
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(kernels, "_entries", {})
+
+
+def _launch_cases():
+    """(name, CUDA launch function, its arguments) on float32 CPU tensors:
+    the launch path must raise before it looks at the device."""
+    O, g = 64, torch.Generator().manual_seed(0)
+
+    def rows(k):
+        return torch.randn((k, O), generator=g)
+    ax = SegmentAxis.build(torch.randint(0, 5, (O,), generator=g), 5)
+    pairs = ((((0, 0),), ((1, 1),)))
+    return [
+        ("projection_resid_jac", kernels._projection_resid_jac_cuda,
+         (rows(9), rows(9), rows(3), rows(3), rows(2), rows(16), rows(1))),
+        ("gather", kernels._gather_cuda, (torch.randn(5, 4), ax)),
+        ("rowsum", kernels._rowsum_cuda, (rows(4), ax)),
+        ("pair_rowsum", kernels._pair_rowsum_cuda,
+         (rows(2), rows(2), pairs, ax)),
+    ]
+
+
+@pytest.mark.parametrize("case", range(4),
+                         ids=[c[0] for c in _launch_cases()])
+def test_cuda_launch_raises_when_build_fails(broken_build, case):
+    name, launch, args = _launch_cases()[case]
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(_BuildFailed):
+        launch(*args)
+    assert kernels.LAUNCHES == before
+
+
+@pytest.mark.parametrize("case", range(4),
+                         ids=[c[0] for c in _launch_cases()])
+def test_wrapper_takes_kernel_path_off_cpu(broken_build, case):
+    """A tensor that is not on the CPU (here on the meta device) goes to
+    the kernel path, which raises: the wrapper has no fallback."""
+    name, _, args = _launch_cases()[case]
+    wrapper = getattr(kernels, name)
+    meta = []
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            a = a.to("meta")
+        elif isinstance(a, SegmentAxis):
+            a = SegmentAxis(a.ids.to("meta"), a.perm.to("meta"),
+                            a.offsets.to("meta"), a.n_seg)
+        meta.append(a)
+    with pytest.raises(_BuildFailed):
+        wrapper(*meta)
