@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's global bundle adjustment on one NVIDIA
-card, check every kernel against its plain PyTorch version, and time it.
+"""Drive the PyTorch/CUDA port's global bundle adjustment and stage-2
+inlier sweep on one NVIDIA card, check every kernel against its plain
+PyTorch version, and time it.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
 Phases (each raises on failure; the exit code is then non-zero):
 
 1. device  -- the card's name and power limit (nvidia-smi); build the
-              four kernels with nvcc for sm_90a (all at once) and time it.
+              five kernels with nvcc for sm_90a (all at once) and time it.
 2. kernels -- one LM iteration of the slice on the committed
               .bench_cache.npz problem (100 frames, 1001 points, 100,100
               observations, f32) records every distinct input each kernel
@@ -31,9 +32,29 @@ Phases (each raises on failure; the exit code is then non-zero):
               counters zeroed before and read after, and must match
               _solve_ba.
 
-Output: the {"kernels": [...]} line, a {"slice": ...} line, the card's
-name and power limit, and last {"ok": true, "device": {...}}. Without a
-CUDA device it prints no result and exits 1.
+4. inlier sweep -- stage 2's inlier classification at Gerrard-Hall
+              scale: the port's synthetic generator makes 100 frames and
+              2,500 points (10,238,895 matches over 4,950 pairs, 224,824
+              keypoints), and a seeded draw makes about 10% of the pairs
+              UNCALIBRATED and 5% PLANAR (infinite homography K_j R K_i^-1).
+              One sweep records every input of the Sampson kernel (B7), the
+              gather (B2) and the row sums (B3); each is checked against its
+              plain version in f64 (B7 within the first-order bound of its
+              own f32 operations, sampson_bound) and timed like phase 2.
+              Then undistort_images + image_pairs_inlier_count run three
+              times on the card (counters zeroed before the first: sampson
+              must launch twice per chunk, gather and rowsum must launch).
+              Two runs must agree bit for bit, a run in chunks of ceil(M/3)
+              must equal the one-shot run bit for bit, and against the CPU's
+              plain f32 path every match classified differently must have
+              its f64 error within B7's bound of its threshold. Last, the
+              relative-pose filters and keep_largest_connected_component run
+              on the card's result.
+
+Output: the {"kernels": [...]} line (five kernels; B2 and B3 per path),
+a {"slice": ...} line, an {"inlier_sweep": ...} line, the card's name and
+power limit, and last {"ok": true, "device": {...}}. Without a CUDA device
+it prints no result and exits 1.
 """
 
 from __future__ import annotations
@@ -48,13 +69,17 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from glomap_tpu_torch.config import BundleAdjusterOptions
+from glomap_tpu_torch.config import BundleAdjusterOptions, InlierThresholds
 from glomap_tpu_torch.estimators.bundle_adjustment import (
     _solve_ba, solve_bundle_adjustment)
 from glomap_tpu_torch.ops import _build, kernels
 from glomap_tpu_torch.ops import camera_models as cm
+from glomap_tpu_torch.processors import pair_inliers, relpose_filter
+from glomap_tpu_torch.processors.undistortion import undistort_images
+from glomap_tpu_torch.scene import view_graph as vgm
 from glomap_tpu_torch.scene.arrays import Scene, Tracks
 from glomap_tpu_torch.utils.carry import ba_inputs_from_arrays
+from glomap_tpu_torch.utils.profile_sweep import SWEEP_OPTIONS, sweep_problem
 
 BENCH_CACHE = Path(__file__).resolve().parent / ".bench_cache.npz"
 # bench.py's settings: the throughput run forces every LM iteration
@@ -78,6 +103,16 @@ PROJ_J_RTOL = 1e-5
 #   segment, and the 8-level block tree (see _sum_bound). Not a tuned
 #   number: a kernel inside it sums what the plain version sums.
 # gather: an exact copy, compared bit for bit.
+# sampson: every f32 operation of sampson.cu rounds once (relative error
+#   u = 2^-24 at most; no FMA contraction). First order, each point
+#   coordinate divided by its z carries 2u; a line value L = e0 p + e1 q + e2
+#   carries 5u * (|e0 p| + |e1 q| + |e2|); C = Ex0 b0 + Ex1 b1 + Ex2 adds
+#   the lines' errors weighted by |b| and 5u of its own terms; the
+#   denominator D = sum L^2 carries sum(2 |L| dL + dL^2) + 4u D. Then
+#   |r_f32 - r| <= (2 |C| dC + dC^2) / D_lo + r (dD / D_lo + 2u), with
+#   D_lo = max(D - dD, 1e-12), keeping dC^2 because C cancels to ~0 on an
+#   inlier. See sampson_bound. Not a tuned number. The f64 reference's own
+#   rounding is 2^-29 of it, covered by 5u where 4u would do.
 # CPU plain path vs the card after CPU_ITERS LM iterations, f32: the
 #   reduction orders differ and the CG carries the rounding on. Measured on
 #   an H100 (700 W): cost at most 1.6e-7 relative, parameters at most
@@ -100,10 +135,20 @@ REPLACES = {
                "glomap_tpu/ops/pallas_kernels.py:431"),
     "pair_rowsum": ("glomap_tpu_torch/csrc/pair_rowsum.cu",
                     "glomap_tpu/ops/pallas_kernels.py:762"),
+    "sampson_score": ("glomap_tpu_torch/csrc/sampson.cu",
+                      "glomap_tpu/ops/pallas_kernels.py:949"),
 }
+# wrapper name -> its counter in kernels.LAUNCHES
+COUNTER = {"sampson_score": "sampson"}
+# the kernels each path must launch
+BA_KERNELS = ("projection_resid_jac", "gather", "rowsum", "pair_rowsum")
+SWEEP_KERNELS = ("gather", "rowsum", "sampson_score")
 # f32 operations per observation of the projection kernel, counted from
 # projection.cu (all kinds' base maps are evaluated, then selected)
 PROJ_OPS = {25: 420, 31: 520}
+# f32 operations per match of the Sampson kernel, counted from sampson.cu
+SAMPSON_OPS = 40
+
 
 
 def card_line() -> str:
@@ -162,6 +207,35 @@ def bench_scene():
 # ----------------------------------------------------------------------------
 
 
+def sampson_bound(E9, x1T, x2T):
+    """(r, bound): the squared Sampson error in f64 of the f32 inputs, and
+    the bound on the kernel's f32 rounding derived above."""
+    u = 2.0 ** -24
+    eps = kernels.SAMPSON_EPS
+    E, x1, x2 = E9.double(), x1T.double(), x2T.double()
+    z1, z2 = x1[2] + eps, x2[2] + eps
+    a0, a1, b0, b1 = x1[0] / z1, x1[1] / z1, x2[0] / z2, x2[1] / z2
+
+    def line(e0, e1, e2, p, q):
+        return (e0 * p + e1 * q + e2,
+                5 * u * ((e0 * p).abs() + (e1 * q).abs() + e2.abs()))
+    Ex0, dEx0 = line(E[0], E[1], E[2], a0, a1)
+    Ex1, dEx1 = line(E[3], E[4], E[5], a0, a1)
+    Ex2, dEx2 = line(E[6], E[7], E[8], a0, a1)
+    Et0, dEt0 = line(E[0], E[3], E[6], b0, b1)
+    Et1, dEt1 = line(E[1], E[4], E[7], b0, b1)
+    C = Ex0 * b0 + Ex1 * b1 + Ex2
+    dC = b0.abs() * dEx0 + b1.abs() * dEx1 + dEx2 + 5 * u * (
+        (Ex0 * b0).abs() + (Ex1 * b1).abs() + Ex2.abs())
+    den = Ex0 * Ex0 + Ex1 * Ex1 + Et0 * Et0 + Et1 * Et1
+    dden = sum(2 * L.abs() * dL + dL * dL for L, dL in (
+        (Ex0, dEx0), (Ex1, dEx1), (Et0, dEt0), (Et1, dEt1))) + 4 * u * den
+    D = torch.clamp(den, min=eps)
+    D_lo = torch.clamp(den - dden, min=eps)
+    r = C * C / D
+    return r, (2 * C.abs() * dC + dC * dC) / D_lo + r * (dden / D_lo + 2 * u)
+
+
 def _key(name, args):
     if name == "projection_resid_jac":
         return (name, args[7] is not None)
@@ -182,7 +256,10 @@ def record_cases(run) -> dict:
         def recorded(*args):
             if name == "projection_resid_jac" and len(args) == 7:
                 args = args + (None,)  # the cost evaluation's call
-            k = _key(name, args)
+            # each Sampson call is a case of its own: E on rays, F on
+            # pixels, per chunk
+            k = (name, sum(c[0] == name for c in cases)) \
+                if name == "sampson_score" else _key(name, args)
             if k not in cases:
                 copies = {}  # keeps U is V (a Gram) as one tensor
                 cases[k] = [tuple(
@@ -205,6 +282,8 @@ def record_cases(run) -> dict:
 def _plain(name, args):
     if name == "projection_resid_jac":
         return kernels.projection_resid_jac_plain(*args)
+    if name == "sampson_score":
+        return kernels.sampson_score_plain(*args)
     axis = args[-1]
     if name == "gather":
         return kernels.gather_plain(args[0], axis.ids)
@@ -215,6 +294,8 @@ def _plain(name, args):
 
 def _library(name, args):
     """One PyTorch call computing the same function, or None."""
+    if name == "sampson_score":
+        return None
     axis = args[-1]
     if name == "gather":
         tab, ids = args[0], axis.ids
@@ -274,6 +355,13 @@ def check_case(name, args, gen) -> float:
     same inputs; raises outside the stated tolerance. Returns the largest
     absolute difference."""
     got = getattr(kernels, name)(*args)
+    if name == "sampson_score":
+        r, bound = sampson_bound(*args)
+        err = (got.double() - r).abs()
+        if not bool(torch.isfinite(got).all()) or bool((err > bound).any()):
+            raise AssertionError(f"{name}: error {float(err.max())} above "
+                                 "the rounding bound, or non-finite")
+        return float(err.max())
     want = _plain(name, _f64(args))
     if name == "projection_resid_jac":
         (r, J), (r0, J0) = got, want
@@ -325,6 +413,9 @@ def case_work(name, args):
     """(bytes, operations) the function needs: each input read once, each
     output written once, and the operations on these inputs."""
     f = 4  # f32 and int32
+    if name == "sampson_score":
+        M = args[0].shape[1]
+        return f * 16 * M, SAMPSON_OPS * M
     if name == "projection_resid_jac":
         O = args[0].shape[1]
         zdim = 25 if args[7] is None else 31
@@ -366,6 +457,8 @@ def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
 
 
 def case_label(name, args):
+    if name == "sampson_score":
+        return f"M={args[0].shape[1]}"
     if name == "projection_resid_jac":
         return f"zdim={25 if args[7] is None else 31} O={args[0].shape[1]}"
     axis = args[-1]
@@ -393,9 +486,9 @@ def measure_case(name, args, gen, peak_bw, peak_flops, on_path=True):
                 bytes=nbytes, operations=ops)
 
 
-def kernel_summary(name, cases, calls, launches):
-    """One entry per kernel: the per-launch numbers averaged over the main
-    path's shapes, weighted by their calls in one LM iteration."""
+def _path_summary(cases, calls, launches):
+    """A kernel's per-launch numbers on one path, averaged over the path's
+    shapes weighted by their calls in the recorded run."""
     on = [(c, calls[i]) for i, c in enumerate(cases) if c["on_path"]]
     n = sum(w for _, w in on)
 
@@ -403,15 +496,117 @@ def kernel_summary(name, cases, calls, launches):
         if any(c[k] is None for c, _ in on):
             return None
         return sum(c[k] * w for c, w in on) / n
+    return dict(launches=launches, ms=mean("ms"), plain_ms=mean("plain_ms"),
+                bound_ms=mean("bound_ms"), library_ms=mean("library_ms"),
+                bound_by="bytes" if all(c["bound_by"] == "bytes"
+                                        for c, _ in on) else "operations")
+
+
+def kernel_summary(name, paths):
+    """One entry per kernel. paths: {path: (cases, calls per recorded run,
+    launches in the path's counted run)}. The top-level numbers are the
+    paths' means weighted by their launches; each path's own are under
+    "paths"."""
+    per = {p: _path_summary(*v) for p, v in paths.items()}
+    total = sum(v["launches"] for v in per.values())
+
+    def mean(k):
+        if any(v[k] is None for v in per.values()):
+            return None
+        return sum(v[k] * v["launches"] for v in per.values()) / total
     source, replaces = REPLACES[name]
     return dict(name=name, route="cuda", source=source, replaces=replaces,
-                launches=launches, max_abs_err=max(c["max_abs_err"]
-                                                   for c in cases),
+                launches=total,
+                max_abs_err=max(c["max_abs_err"] for v in paths.values()
+                                for c in v[0]),
                 ms=mean("ms"), plain_ms=mean("plain_ms"),
                 bound_ms=mean("bound_ms"),
-                bound_by="bytes" if all(c["bound_by"] == "bytes"
-                                        for c, _ in on) else "operations",
-                library_ms=mean("library_ms"), cases=cases)
+                bound_by="bytes" if all(v["bound_by"] == "bytes"
+                                        for v in per.values())
+                else "operations",
+                library_ms=mean("library_ms"), paths=per,
+                cases={p: v[0] for p, v in paths.items()})
+
+
+# ----------------------------------------------------------------------------
+# phase 4 helpers
+# ----------------------------------------------------------------------------
+
+
+def run_sweep(scene, vg, device, lift=True):
+    """(view graph with the results, scores, seconds, seconds of the lift)
+    of undistort_images (unless lift is False) and
+    image_pairs_inlier_count in f32 on a copy of vg."""
+    out = vg.copy()
+    cuda = device.type == "cuda"
+
+    def now():
+        if cuda:
+            torch.cuda.synchronize()
+        return time.perf_counter()
+    t0 = now()
+    if lift:
+        undistort_images(scene, device=device)
+    t1 = now()
+    score = pair_inliers.image_pairs_inlier_count(scene, out, device=device)
+    t2 = now()
+    return out, score, t2 - t0, t1 - t0
+
+
+def same_sweep(a, b) -> bool:
+    return (np.array_equal(a[0].match_inlier, b[0].match_inlier)
+            and np.array_equal(a[0].pair_num_inliers, b[0].pair_num_inliers)
+            and np.array_equal(a[1], b[1]))
+
+
+def sweep_disagreements(card, cpu, cases, opts: InlierThresholds) -> dict:
+    """Matches that the card and the CPU's plain f32 path classify
+    differently. Raises unless the pair counts differ by exactly those
+    matches and each one is an E or F match whose f64 Sampson error lies
+    within B7's rounding bound of its threshold. `cases` are the recorded
+    kernel inputs of a one-chunk card run."""
+    vg = card[0]
+    step = card[0].match_inlier.astype(np.int64) - cpu[0].match_inlier
+    per_pair = np.bincount(vg.match_pair, weights=step,
+                           minlength=vg.num_pairs).astype(np.int64)
+    if not np.array_equal(card[0].pair_num_inliers
+                          - cpu[0].pair_num_inliers, per_pair):
+        raise AssertionError("sweep: pair counts differ beyond the matches "
+                             "classified differently")
+    diff = np.flatnonzero(step)
+    out = {"matches": int(len(diff)),
+           "pairs": int(len(np.unique(vg.match_pair[diff]))),
+           "score_max_rel_diff": float(np.max(
+               np.abs(card[1] - cpu[1]) / np.maximum(np.abs(cpu[1]), 1e-30)))}
+    if not len(diff):
+        return out
+    tab = next(a[0] for (n, *_), (a, _) in cases.items()
+               if n == "gather" and a[0].shape[1] == 53)
+    E_args = cases[("sampson_score", 0)][0]
+    F_args = cases[("sampson_score", 1)][0]
+    pair = vg.match_pair[diff]
+    cfg = vg.pair_config[pair]
+    worst = 0.0
+    for kind, args in ((vgm.CONFIG_CALIBRATED, E_args),
+                       (vgm.CONFIG_UNCALIBRATED, F_args)):
+        sel = cfg == kind
+        if not sel.any():
+            continue
+        idx = torch.from_numpy(diff[sel]).to(tab.device)
+        r, bound = sampson_bound(*(a[:, idx] for a in args))
+        thr = tab[torch.from_numpy(pair[sel].astype(np.int64)).to(
+            tab.device), 48].double() if kind == vgm.CONFIG_CALIBRATED \
+            else torch.full_like(r, opts.max_epipolar_error_F ** 2)
+        margin = (r - thr).abs() / bound
+        worst = max(worst, float(margin.max()))
+        if bool((margin > 1.0).any()):
+            raise AssertionError(f"sweep: a config-{kind} match differs "
+                                 "outside B7's bound of its threshold")
+    if not np.isin(cfg, (vgm.CONFIG_CALIBRATED,
+                         vgm.CONFIG_UNCALIBRATED)).all():
+        raise AssertionError("sweep: an H or unscored match differs")
+    out["max_threshold_distance_over_bound"] = worst
+    return out
 
 
 # ----------------------------------------------------------------------------
@@ -475,7 +670,7 @@ def main() -> int:
     cases = record_cases(lambda: solve(inputs, 1))
     torch.cuda.synchronize()
     gen = torch.Generator().manual_seed(0)
-    per_kernel = {n: ([], []) for n in REPLACES}
+    per_kernel = {n: ([], []) for n in BA_KERNELS}
     for (name, *_), (args, calls) in cases.items():
         res = measure_case(name, args, gen, peak_bw, peak_flops)
         per_kernel[name][0].append(res)
@@ -505,8 +700,8 @@ def main() -> int:
         seconds.append(time.perf_counter() - t0)
         if out is None:
             out, launches = run, dict(kernels.LAUNCHES)
-    if not all(v > 0 for v in launches.values()):
-        raise AssertionError(f"a kernel was not launched: {launches}")
+    if not all(launches[COUNTER.get(n, n)] > 0 for n in BA_KERNELS):
+        raise AssertionError(f"a BA kernel was not launched: {launches}")
     cost = float(out[4])
     if out[5] != LM_ITERS or not math.isfinite(cost) or not cost < cost0:
         raise AssertionError(f"slice: {out[5]} iterations, cost {cost} "
@@ -514,8 +709,6 @@ def main() -> int:
     for k, v in _params(out).items():
         if not bool(torch.isfinite(v).all()):
             raise AssertionError(f"slice: non-finite {k}")
-    entries = [kernel_summary(n, cs, ws, launches[n])
-               for n, (cs, ws) in per_kernel.items()]
 
     # the card against the CPU's plain path (f32, and f64 for scale), and
     # against itself
@@ -541,7 +734,7 @@ def main() -> int:
             dtype=torch.float32, device=dev):
         raise AssertionError("solve_bundle_adjustment failed")
     entry_launches = dict(kernels.LAUNCHES)
-    if not all(v > 0 for v in entry_launches.values()):
+    if not all(entry_launches[COUNTER.get(n, n)] > 0 for n in BA_KERNELS):
         raise AssertionError(f"entry point: a kernel was not launched: "
                              f"{entry_launches}")
     entry = [torch.from_numpy(a) for a in (
@@ -549,6 +742,74 @@ def main() -> int:
     entry_diffs = compare_runs(tuple(entry) + cuda_a[4:], cuda_a,
                                "solve_bundle_adjustment vs _solve_ba")
 
+    # phase 4: the inlier sweep at Gerrard-Hall scale
+    thr = InlierThresholds()
+    scene, vg, gen_s = sweep_problem()
+    M, P, K = vg.num_matches, vg.num_pairs, scene.num_keypoints
+    print(f"# sweep scene: M={M} P={P} K={K}, generated in {gen_s:.2f} s",
+          file=sys.stderr)
+    undistort_images(scene, device=dev)
+    sweep_cases = record_cases(
+        lambda: pair_inliers.image_pairs_inlier_count(scene, vg.copy(),
+                                                      thr, device=dev))
+    torch.cuda.synchronize()
+    per_sweep = {n: ([], []) for n in SWEEP_KERNELS}
+    for (name, *_), (args, calls) in sweep_cases.items():
+        res = measure_case(name, args, gen, peak_bw, peak_flops)
+        per_sweep[name][0].append(res)
+        per_sweep[name][1].append(calls)
+
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    runs = [run_sweep(scene, vg, dev)]
+    sweep_launches = dict(kernels.LAUNCHES)
+    peak_bytes = torch.cuda.max_memory_allocated(dev)
+    runs += [run_sweep(scene, vg, dev) for _ in range(2)]
+    n_chunks = len(pair_inliers._chunk_bounds(
+        vg.pair_match_offset, P, M, pair_inliers._SWEEP_CHUNK_MATCHES)) - 1
+    if sweep_launches["sampson"] != 2 * n_chunks or not all(
+            sweep_launches[COUNTER.get(n, n)] > 0 for n in SWEEP_KERNELS):
+        raise AssertionError(f"sweep: launches {sweep_launches} for "
+                             f"{n_chunks} chunk(s)")
+    if not all(same_sweep(runs[0], r) for r in runs[1:]):
+        raise AssertionError("sweep: two runs on the card differ")
+    one_shot = pair_inliers._SWEEP_CHUNK_MATCHES
+    try:
+        pair_inliers._SWEEP_CHUNK_MATCHES = -(-M // 3)
+        chunked = run_sweep(scene, vg, dev)
+    finally:
+        pair_inliers._SWEEP_CHUNK_MATCHES = one_shot
+    if not same_sweep(runs[0], chunked):
+        raise AssertionError("sweep: chunks of ceil(M/3) differ from one "
+                             "shot")
+    # the CPU's plain path on the same rays (the card's lift)
+    cpu = run_sweep(scene, vg, torch.device("cpu"), lift=False)
+    disagree = sweep_disagreements(runs[0], cpu, sweep_cases, thr)
+    print(f"# sweep: {disagree['matches']} matches classified differently "
+          "on the card and the CPU (f32)", file=sys.stderr)
+    del sweep_cases
+    # the rest of stage 2 on the card's result
+    vg_f, scene_f = runs[0][0].copy(), scene.copy()
+    removed = {
+        "inlier_num": relpose_filter.filter_inlier_num(vg_f,
+                                                       thr.min_inlier_num),
+        "inlier_ratio": relpose_filter.filter_inlier_ratio(
+            vg_f, thr.min_inlier_ratio)}
+    valid_before = int(vg_f.pair_valid.sum())
+    component = vg_f.keep_largest_connected_component(scene_f)
+    removed["largest_component"] = valid_before - int(vg_f.pair_valid.sum())
+    if component == 0:
+        raise AssertionError("sweep: no connected component left")
+    inl = runs[0][0].match_inlier
+    if not (0.0 < inl.mean() < 1.0 and np.isfinite(runs[0][1]).all()):
+        raise AssertionError("sweep: degenerate classification")
+
+    entries = [kernel_summary(n, {
+        p: (v[n][0], v[n][1], l[COUNTER.get(n, n)])
+        for p, v, l in (("ba", per_kernel, launches),
+                        ("inlier_sweep", per_sweep, sweep_launches))
+        if n in v}) for n in REPLACES]
+    sweep_s = [r[2] for r in runs]
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"slice": {
         "problem": "bench_cache: 100 frames, 1001 points, 100100 obs, f32",
@@ -562,10 +823,28 @@ def main() -> int:
         "entry_point_launches": entry_launches,
         "entry_point_vs_solve_ba": entry_diffs,
         "build_s": rep["seconds"], "card": card}}))
+    print(json.dumps({"inlier_sweep": {
+        "problem": (f"synthetic {SWEEP_OPTIONS}: {M} matches, {P} pairs, "
+                    f"{K} keypoints, f32"),
+        "configs": {str(c): int((vg.pair_config == c).sum())
+                    for c in np.unique(vg.pair_config)},
+        "generation_s": gen_s, "chunks": n_chunks,
+        "seconds": sweep_s, "matches_per_s": [M / t for t in sweep_s],
+        "undistort_s": [r[3] for r in runs],
+        "chunked_ceil_M_over_3_s": chunked[2],
+        "peak_device_bytes": peak_bytes, "launches": sweep_launches,
+        "kernel_ms_est": sum(c["ms"] * w for cs, ws in per_sweep.values()
+                             for c, w in zip(cs, ws)),
+        "inlier_share": float(inl.mean()),
+        "pair_inliers_total": int(runs[0][0].pair_num_inliers.sum()),
+        "bitwise_reproducible": True, "chunked_equals_one_shot": True,
+        "card_vs_cpu_f32": disagree, "cpu_f32_s": cpu[2],
+        "pairs_removed": removed, "component_images": component,
+        "card": card}}))
     print(card)
+    # the run used one card
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
-        "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": kind, "count": 1}}))
     return 0
 
 

@@ -1,14 +1,28 @@
-"""Bundle-adjustment options (the port's own copy).
+"""Options of the ported stages (the port's own copy).
 
-Same fields and defaults as glomap_tpu/config.py OptimizationBase and
-BundleAdjusterOptions, which mirror the reference's
-OptimizationBaseOptions (glomap/estimators/optimization_base.h) and
-BundleAdjusterOptions (glomap/estimators/bundle_adjustment.h).
+Same fields and defaults as glomap_tpu/config.py InlierThresholds,
+OptimizationBase and BundleAdjusterOptions, which mirror the reference's
+InlierThresholdOptions (glomap/types.h), OptimizationBaseOptions
+(glomap/estimators/optimization_base.h) and BundleAdjusterOptions
+(glomap/estimators/bundle_adjustment.h).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+
+@dataclass
+class InlierThresholds:
+    max_angle_error: float = 1.0            # deg, global positioning filter
+    max_reprojection_error: float = 1e-2    # normalized, BA filter
+    min_triangulation_angle: float = 1.0    # deg
+    max_epipolar_error_E: float = 1.0       # px
+    max_epipolar_error_F: float = 4.0       # px
+    max_epipolar_error_H: float = 4.0       # px
+    min_inlier_num: int = 30
+    min_inlier_ratio: float = 0.25
+    max_rotation_error: float = 10.0        # deg
 
 
 @dataclass

@@ -1,7 +1,9 @@
 """Batched quaternion math on tensors.
 
 Counterpart of glomap_tpu/math/rotation.py (quat_normalize, quat_mul,
-quat_rotate, quat_to_rotmat, so3_exp_quat). Conventions are COLMAP's:
+quat_conj, quat_rotate, quat_to_rotmat, rotmat_to_quat, so3_exp_quat,
+relative_quat_angle_rad, rigid_inverse, rigid_compose). Conventions are
+COLMAP's:
 quaternions are (w, x, y, z) with x' = R(q) x, poses are cam_from_world,
 and every function takes arbitrary leading batch dimensions.
 """
@@ -29,6 +31,10 @@ def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ], dim=-1)
 
 
+def quat_conj(q: torch.Tensor) -> torch.Tensor:
+    return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+
+
 def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Rotate vectors v (..., 3) by unit quaternions q (..., 4)."""
     w = q[..., :1]
@@ -52,6 +58,27 @@ def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
     return m.reshape(q.shape[:-1] + (3, 3))
 
 
+def rotmat_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) -> unit quaternion (..., 4).
+
+    Branchless Shepperd's method: all four candidate quaternions (each
+    stable in a different region), the one keyed by the largest of
+    (trace, R00, R11, R22) selected."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    # candidate k is the true quaternion scaled by 2*sqrt(radicand_k)
+    cands = torch.stack([torch.stack(c, -1) for c in (
+        [1 + tr, m21 - m12, m02 - m20, m10 - m01],
+        [m21 - m12, 1 + m00 - m11 - m22, m01 + m10, m02 + m20],
+        [m02 - m20, m01 + m10, 1 - m00 + m11 - m22, m12 + m21],
+        [m10 - m01, m02 + m20, m12 + m21, 1 - m00 - m11 + m22])], dim=-2)
+    idx = torch.argmax(torch.stack([tr, m00, m11, m22], dim=-1), dim=-1)
+    q = torch.take_along_dim(cands, idx[..., None, None], dim=-2)
+    return quat_normalize(q[..., 0, :])
+
+
 def so3_exp_quat(w: torch.Tensor) -> torch.Tensor:
     """Angle-axis vector (..., 3) -> unit quaternion, small-angle safe."""
     theta2 = torch.sum(w * w, dim=-1, keepdim=True)
@@ -62,3 +89,20 @@ def so3_exp_quat(w: torch.Tensor) -> torch.Tensor:
     k = torch.where(small, 0.5 - theta2 / 48.0, torch.sin(half) / theta)
     qw = torch.where(small, 1.0 - theta2 / 8.0, torch.cos(half))
     return quat_normalize(torch.cat([qw, k * w], dim=-1))
+
+
+def relative_quat_angle_rad(q1: torch.Tensor,
+                            q2: torch.Tensor) -> torch.Tensor:
+    """Angle between two rotations given as quaternions (geodesic metric)."""
+    dot = torch.abs(torch.sum(q1 * q2, dim=-1))
+    return 2.0 * torch.arccos(torch.clamp(dot, -1.0, 1.0))
+
+
+def rigid_inverse(q: torch.Tensor, t: torch.Tensor):
+    qi = quat_conj(q)
+    return qi, -quat_rotate(qi, t)
+
+
+def rigid_compose(q2, t2, q1, t1):
+    """(q2, t2) o (q1, t1): apply (q1, t1) first."""
+    return quat_mul(q2, q1), quat_rotate(q2, t1) + t2

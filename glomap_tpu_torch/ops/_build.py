@@ -25,6 +25,7 @@ SOURCES = {
     "gather": "gather.cu",
     "rowsum": "rowsum.cu",
     "pair_rowsum": "pair_rowsum.cu",
+    "sampson": "sampson.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -1,11 +1,12 @@
-"""The BA slice's four CUDA kernels: wrappers, plain versions, counters.
+"""The port's CUDA kernels: wrappers, plain versions, counters.
 
 Counterpart of glomap_tpu/ops/pallas_kernels.py. Each kernel comes in
 three parts:
 
-  * a wrapper (`projection_resid_jac`, `gather`, `rowsum`, `pair_rowsum`)
-    that takes the plain version for a CPU tensor and otherwise launches
-    the CUDA kernel (`_*_cuda`) or raises -- there is no fallback;
+  * a wrapper (`projection_resid_jac`, `gather`, `rowsum`,
+    `pair_rowsum`, `sampson_score`) that takes the plain version for a
+    CPU tensor and otherwise launches the CUDA kernel (`_*_cuda`) or
+    raises -- there is no fallback;
   * the plain PyTorch version (`*_plain`), the reference the tests and
     chip_smoke.py hold the kernel against;
   * a launch counter in LAUNCHES, incremented only where the kernel is
@@ -29,7 +30,9 @@ import torch
 from glomap_tpu_torch.ops import _build
 
 LAUNCHES = {"projection_resid_jac": 0, "gather": 0, "rowsum": 0,
-            "pair_rowsum": 0}
+            "pair_rowsum": 0, "sampson": 0}
+# the z-normalisation offset and denominator clamp of the Sampson error
+SAMPSON_EPS = 1e-12
 
 
 def reset_launch_counts() -> None:
@@ -262,6 +265,25 @@ def pair_rowsum_plain(U, V, pairs, ids, n_seg: int) -> torch.Tensor:
     return rowsum_plain(pair_rows(U, V, pairs), ids, n_seg)
 
 
+def sampson_score_plain(E9, x1T, x2T):
+    """Squared Sampson error, E9 (9, M) row-major E per match, x1T, x2T
+    (3, M) homogeneous points -> (M,); the body of
+    glomap_tpu/math/two_view.py sampson_error_sq_rows."""
+    z1 = x1T[2] + SAMPSON_EPS
+    z2 = x2T[2] + SAMPSON_EPS
+    a0, a1 = x1T[0] / z1, x1T[1] / z1
+    b0, b1 = x2T[0] / z2, x2T[1] / z2
+    one = torch.ones_like(a0)
+    Ex0 = E9[0] * a0 + E9[1] * a1 + E9[2] * one
+    Ex1 = E9[3] * a0 + E9[4] * a1 + E9[5] * one
+    Ex2 = E9[6] * a0 + E9[7] * a1 + E9[8] * one
+    Et0 = E9[0] * b0 + E9[3] * b1 + E9[6] * one
+    Et1 = E9[1] * b0 + E9[4] * b1 + E9[7] * one
+    C = Ex0 * b0 + Ex1 * b1 + Ex2 * one
+    denom = Ex0 * Ex0 + Ex1 * Ex1 + Et0 * Et0 + Et1 * Et1
+    return C * C / torch.clamp(denom, min=SAMPSON_EPS)
+
+
 # ----------------------------------------------------------------------------
 # wrappers
 # ----------------------------------------------------------------------------
@@ -298,6 +320,14 @@ def pair_rowsum(U: torch.Tensor, V: torch.Tensor, pairs,
     return _pair_rowsum_cuda(U, V, pairs, axis)
 
 
+def sampson_score(E9: torch.Tensor, x1T: torch.Tensor,
+                  x2T: torch.Tensor) -> torch.Tensor:
+    """E9 (9, M), x1T (3, M), x2T (3, M) -> squared Sampson error (M,)."""
+    if E9.device.type == "cpu":
+        return sampson_score_plain(E9, x1T, x2T)
+    return _sampson_score_cuda(E9, x1T, x2T)
+
+
 # ----------------------------------------------------------------------------
 # CUDA launches (ctypes)
 # ----------------------------------------------------------------------------
@@ -310,6 +340,7 @@ _SIGNATURES = {
     "gather": ("glomap_gather", [_P, _P, _P, _I, _I, _I, _P]),
     "rowsum": ("glomap_rowsum", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "pair_rowsum": ("glomap_pair_rowsum", [_P] * 6 + [_I] * 5 + [_P]),
+    "sampson": ("glomap_sampson", [_P] * 4 + [_I, _P]),
 }
 _entries: dict = {}
 # segment reductions: threads per block and most output columns per block
@@ -470,4 +501,18 @@ def _pair_rowsum_cuda(U, V, pairs, axis: SegmentAxis) -> torch.Tensor:
             _cols_per_block(axis.n_seg, R), _stream(dev))
     _raise_on(rc, "pair_rowsum")
     LAUNCHES["pair_rowsum"] += 1
+    return out
+
+
+def _sampson_score_cuda(E9, x1T, x2T) -> torch.Tensor:
+    fn = _entry("sampson")
+    M = E9.shape[1] if E9.dim() == 2 else -1
+    dev = E9.device
+    for name, t, k in (("E", E9, 9), ("x1", x1T, 3), ("x2", x2T, 3)):
+        _check_rows(f"sampson_score {name}", t, k, M, dev)
+    out = torch.empty((M,), dtype=torch.float32, device=dev)
+    rc = fn(E9.data_ptr(), x1T.data_ptr(), x2T.data_ptr(), out.data_ptr(), M,
+            _stream(dev))
+    _raise_on(rc, "sampson_score")
+    LAUNCHES["sampson"] += 1
     return out

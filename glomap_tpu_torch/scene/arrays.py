@@ -34,15 +34,13 @@ def _t(a):
 
 def _rigid_compose(q2, t2, q1, t1):
     """(q2, t2) o (q1, t1) on numpy arrays: apply (q1, t1) first."""
-    q = rotm.quat_mul(_t(q2), _t(q1))
-    t = rotm.quat_rotate(_t(q2), _t(t1)) + _t(t2)
+    q, t = rotm.rigid_compose(_t(q2), _t(t2), _t(q1), _t(t1))
     return q.numpy(), t.numpy()
 
 
 def _pose_center(q, t):
     """Projection center -R^T t of cam_from_world poses (numpy)."""
-    q_inv = _t(q) * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=torch.float64)
-    return (-rotm.quat_rotate(q_inv, _t(t))).numpy()
+    return (-rotm.quat_rotate(rotm.quat_conj(_t(q)), _t(t))).numpy()
 
 
 @dataclass

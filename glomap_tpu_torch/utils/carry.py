@@ -1,8 +1,8 @@
 """Carry state across from the JAX package: numpy arrays in, port objects
 and tensors out.
 
-The two packages share field names, so a glomap_tpu Scene or Tracks,
-read as a dict of its fields, becomes the port's own object, and a
+The two packages share field names, so a glomap_tpu Scene, Tracks or
+ViewGraph, read field by field, becomes the port's own object, and a
 build_ba_inputs result (either package's) or the arrays of the
 committed .bench_cache.npz become the tensors of the port's _solve_ba.
 Nothing here imports the JAX package: callers pass plain numpy.
@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from glomap_tpu_torch.scene.arrays import Scene, Tracks
+from glomap_tpu_torch.scene.view_graph import ViewGraph
 
 # _solve_ba array arguments: float tables and per-observation rows
 _FLOAT_KEYS = ("frame_quat", "frame_trans", "cam_params", "points",
@@ -40,6 +41,22 @@ def tracks_from_arrays(d: dict) -> Tracks:
     """Port Tracks from a dict of Tracks fields (numpy arrays, copied)."""
     names = {f.name for f in dataclasses.fields(Tracks)}
     return Tracks(**{k: _copy(v) for k, v in d.items() if k in names})
+
+
+def _fields_of(obj, cls) -> dict:
+    return {f.name: getattr(obj, f.name) for f in dataclasses.fields(cls)}
+
+
+def scene_from_jax(scene) -> Scene:
+    """The port's Scene with copies of a JAX-package Scene's fields."""
+    return scene_from_arrays(_fields_of(scene, Scene))
+
+
+def view_graph_from_jax(vg) -> ViewGraph:
+    """The port's ViewGraph with copies of a JAX-package ViewGraph's
+    fields."""
+    return ViewGraph(**{k: _copy(v) for k, v in _fields_of(vg, ViewGraph)
+                        .items()})
 
 
 def ba_inputs_from_arrays(data: dict, statics: dict | None = None,

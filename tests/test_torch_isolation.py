@@ -152,10 +152,12 @@ def _launch_cases():
         ("rowsum", kernels._rowsum_cuda, (rows(4), ax)),
         ("pair_rowsum", kernels._pair_rowsum_cuda,
          (rows(2), rows(2), pairs, ax)),
+        ("sampson_score", kernels._sampson_score_cuda,
+         (rows(9), rows(3), rows(3))),
     ]
 
 
-@pytest.mark.parametrize("case", range(4),
+@pytest.mark.parametrize("case", range(5),
                          ids=[c[0] for c in _launch_cases()])
 def test_cuda_launch_raises_when_build_fails(broken_build, case):
     name, launch, args = _launch_cases()[case]
@@ -165,7 +167,7 @@ def test_cuda_launch_raises_when_build_fails(broken_build, case):
     assert kernels.LAUNCHES == before
 
 
-@pytest.mark.parametrize("case", range(4),
+@pytest.mark.parametrize("case", range(5),
                          ids=[c[0] for c in _launch_cases()])
 def test_wrapper_takes_kernel_path_off_cpu(broken_build, case):
     """A tensor that is not on the CPU (here on the meta device) goes to

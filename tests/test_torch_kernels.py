@@ -286,3 +286,58 @@ def test_term_table_encodes_pairs():
     assert got == pairs
     with pytest.raises(ValueError, match="out of range"):
         kernels.term_table(((( 0, 9),),), 9, 9, "cpu")
+
+
+# ----------------------------------------------------------------------------
+# Sampson score (B7)
+# ----------------------------------------------------------------------------
+
+
+def _sampson_rows(m, seed):
+    """The inputs of tests/test_pallas_kernels.py::test_sampson_score_matches
+    as (9, m) and (3, m) row stacks."""
+    rng = np.random.default_rng(seed)
+    E = rng.standard_normal((m, 3, 3))
+    x1 = rng.standard_normal((m, 3))
+    x2 = rng.standard_normal((m, 3))
+    x1[:, 2] = np.abs(x1[:, 2]) + 0.5
+    x2[:, 2] = np.abs(x2[:, 2]) + 0.5
+    return [np.ascontiguousarray(a) for a in
+            (E.reshape(m, 9).T, x1.T, x2.T)]
+
+
+def _degenerate_sampson_rows():
+    """z at, just above and just below 0 (z + 1e-12 near 0), and rows
+    whose denominator falls below the 1e-12 clamp."""
+    E9, x1, x2 = _sampson_rows(128, 4)
+    x1[2, :6] = [0.0, 1e-13, -5e-13, 1e-12, -2e-12, 1e-300]
+    x2[2, 6:12] = [0.0, 1e-13, -5e-13, 1e-12, -2e-12, 1e-300]
+    # E = e22 * e3 e3^T: Ex and E^T x2 vanish in their first two rows, so
+    # the denominator is 0 (clamped) and C = e22
+    E9[:, 20:24] = 0.0
+    E9[8, 20:24] = [1.0, 1e-3, 1e-7, 0.0]
+    # a tiny E: a denominator of about 1e-14
+    E9[:, 24:28] *= 1e-7
+    return E9, x1, x2
+
+
+@pytest.mark.parametrize("case", ["pallas-inputs", "degenerate"])
+def test_sampson_plain_matches_pallas_and_two_view(case):
+    """rtol 1e-9 against the Pallas kernel (interpret mode) and against
+    two_view.sampson_error_sq_rows, which it computes line for line."""
+    from glomap_tpu.math import two_view as jtv
+    rows = _sampson_rows(500, 2) if case == "pallas-inputs" \
+        else _degenerate_sampson_rows()
+    out = kernels.sampson_score(*(_t(r) for r in rows))
+    assert tuple(out.shape) == (rows[0].shape[1],)
+    ref = np.asarray(pk.sampson_score(*(jnp.asarray(r) for r in rows),
+                                      interpret=True))
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose(
+        out.numpy(), np.asarray(jtv.sampson_error_sq_rows(
+            *(jnp.asarray(r) for r in rows))), rtol=1e-9, atol=1e-12)
+    if case == "degenerate":
+        # clamped denominator: C^2 / 1e-12 exactly as the reference does
+        np.testing.assert_allclose(out.numpy()[20:24],
+                                   np.asarray([1.0, 1e-6, 1e-14, 0.0]) / 1e-12,
+                                   rtol=1e-12)
