@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's global bundle adjustment and stage-2
-inlier sweep on one NVIDIA card, check every kernel against its plain
-PyTorch version, and time it.
+"""Drive the PyTorch/CUDA port's global bundle adjustment, stage-2 inlier
+sweep and stages 4-6 of the mapper on one NVIDIA card, check every kernel
+against its plain PyTorch version, and time it.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
 Phases (each raises on failure; the exit code is then non-zero):
 
 1. device  -- the card's name and power limit (nvidia-smi); build the
-              five kernels with nvcc for sm_90a (all at once) and time it.
+              seven kernels with nvcc for sm_90a (all at once) and time it.
 2. kernels -- one LM iteration of the slice on the committed
               .bench_cache.npz problem (100 frames, 1001 points, 100,100
               observations, f32) records every distinct input each kernel
@@ -50,11 +50,31 @@ Phases (each raises on failure; the exit code is then non-zero):
               its f64 error within B7's bound of its threshold. Last, the
               relative-pose filters and keep_largest_connected_component run
               on the card's result.
+5. stages 4-6 -- the mapper's track establishment, global positioning
+              and iterated bundle adjustment on phase 4's filtered result,
+              composed as glomap_tpu/controllers/global_mapper.py:175-267
+              does (stage_4, stage_5, stage_6 below, default options,
+              ONLY_POINTS, three BA rounds with the progressive filter and
+              its early exit, then the deregistration). The scene's
+              rotations are the generator's, as after rotation averaging.
+              Every kernel input of one GP LM iteration and one BA LM
+              iteration is checked and timed like phase 2: B5
+              (gather_dot) within the first-order bound of its k-term f32
+              dot, B6 (huber_weight_cost) bit for bit against its plain
+              f32 version and within its rounding bound of f64. Three GP LM
+              iterations on the card must match the CPU's plain f32 path
+              (cost to 1e-4 relative). Stage 5 runs twice and must agree
+              bit for bit; counters zeroed before stage 5 must show B2,
+              B3, B5 and B6, and before stage 6 B1-B6. After stage 5 and
+              after stage 6 the registered frame centers, Sim3-aligned to
+              the generator's, must lie within the JAX package's GP oracle
+              (0.15 on a ring of radius 5), stage 6 no worse than stage 5.
 
-Output: the {"kernels": [...]} line (five kernels; B2 and B3 per path),
-a {"slice": ...} line, an {"inlier_sweep": ...} line, the card's name and
-power limit, and last {"ok": true, "device": {...}}. Without a CUDA device
-it prints no result and exits 1.
+Output: the {"kernels": [...]} line (seven kernels; each path's numbers
+under "paths"), a {"slice": ...} line, an {"inlier_sweep": ...} line, a
+{"stages_4_6": ...} line, the card's name and power limit, and last
+{"ok": true, "device": {...}}. Without a CUDA device it prints no result
+and exits 1.
 """
 
 from __future__ import annotations
@@ -69,12 +89,20 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from glomap_tpu_torch.config import BundleAdjusterOptions, InlierThresholds
+from glomap_tpu_torch.config import (BundleAdjusterOptions,
+                                     GlobalPositionerOptions,
+                                     InlierThresholds)
+from glomap_tpu_torch.controllers.track_establishment import (
+    establish_full_tracks, find_tracks_for_problem)
+from glomap_tpu_torch.estimators import global_positioning as gpm
 from glomap_tpu_torch.estimators.bundle_adjustment import (
     _solve_ba, solve_bundle_adjustment)
+from glomap_tpu_torch.math.sim3 import apply_sim3, umeyama_alignment
 from glomap_tpu_torch.ops import _build, kernels
 from glomap_tpu_torch.ops import camera_models as cm
-from glomap_tpu_torch.processors import pair_inliers, relpose_filter
+from glomap_tpu_torch.processors import (pair_inliers, relpose_filter,
+                                         track_filter)
+from glomap_tpu_torch.processors.normalization import normalize_reconstruction
 from glomap_tpu_torch.processors.undistortion import undistort_images
 from glomap_tpu_torch.scene import view_graph as vgm
 from glomap_tpu_torch.scene.arrays import Scene, Tracks
@@ -135,19 +163,41 @@ REPLACES = {
                "glomap_tpu/ops/pallas_kernels.py:431"),
     "pair_rowsum": ("glomap_tpu_torch/csrc/pair_rowsum.cu",
                     "glomap_tpu/ops/pallas_kernels.py:762"),
+    "gather_dot": ("glomap_tpu_torch/csrc/gather_dot.cu",
+                   "glomap_tpu/ops/pallas_kernels.py:849"),
+    "huber_weight_cost": ("glomap_tpu_torch/csrc/huber.cu",
+                          "glomap_tpu/ops/pallas_kernels.py:904"),
     "sampson_score": ("glomap_tpu_torch/csrc/sampson.cu",
                       "glomap_tpu/ops/pallas_kernels.py:949"),
 }
 # wrapper name -> its counter in kernels.LAUNCHES
-COUNTER = {"sampson_score": "sampson"}
+COUNTER = {"sampson_score": "sampson", "huber_weight_cost": "huber"}
 # the kernels each path must launch
-BA_KERNELS = ("projection_resid_jac", "gather", "rowsum", "pair_rowsum")
+BA_KERNELS = ("projection_resid_jac", "gather", "rowsum", "pair_rowsum",
+              "gather_dot", "huber_weight_cost")
 SWEEP_KERNELS = ("gather", "rowsum", "sampson_score")
+GP_KERNELS = ("gather", "rowsum", "gather_dot", "huber_weight_cost")
 # f32 operations per observation of the projection kernel, counted from
 # projection.cu (all kinds' base maps are evaluated, then selected)
 PROJ_OPS = {25: 420, 31: 520}
 # f32 operations per match of the Sampson kernel, counted from sampson.cu
 SAMPSON_OPS = 40
+# per element of the Huber kernel: clamp, sqrt, compare, division,
+# product, difference (huber.cu)
+HUBER_OPS = 6
+# GlobalMapperOptions.num_iteration_bundle_adjustment
+NUM_BA_ROUNDS = 3
+# the ground-truth oracle of stage 5 and 6: the JAX package's own GP test
+# at 1 px noise (tests/test_global_positioning.py:44-51), max center error
+# after Sim3 alignment on a ring of radius 5
+GP_CENTER_BOUND = 0.15
+# card vs the CPU's plain f32 path after CPU_ITERS GP LM iterations, from
+# the random [-100, 100]^3 init: the reduction orders differ (CSR blocks
+# against index_add_) and the CG carries the rounding on. Measured on an
+# H100 (700 W): the cost 6.4e-5 relative, the centers 7.3e-4 and points
+# 2.7e-4 of their largest magnitude; both sides are deterministic, so the
+# 1e-4 bound on the cost is met the same way on every run of this input.
+GP_COST_RTOL = 1e-4
 
 
 
@@ -239,9 +289,13 @@ def sampson_bound(E9, x1T, x2T):
 def _key(name, args):
     if name == "projection_resid_jac":
         return (name, args[7] is not None)
+    if name == "huber_weight_cost":
+        return (name, args[0].shape[0], args[1])
     axis = args[-1]
     if name == "pair_rowsum":
         return (name, id(axis), args[2])
+    if name == "gather_dot":
+        return (name, id(axis), args[0].shape[1], args[1].shape[0])
     return (name, id(axis), args[0].shape[0] if name == "rowsum"
             else args[0].shape[1])
 
@@ -284,19 +338,32 @@ def _plain(name, args):
         return kernels.projection_resid_jac_plain(*args)
     if name == "sampson_score":
         return kernels.sampson_score_plain(*args)
+    if name == "huber_weight_cost":
+        return kernels.huber_weight_cost_plain(*args)
     axis = args[-1]
     if name == "gather":
         return kernels.gather_plain(args[0], axis.ids)
+    if name == "gather_dot":
+        return kernels.gather_dot_plain(args[0], args[1], axis.ids)
     if name == "rowsum":
         return kernels.rowsum_plain(args[0], axis.ids, axis.n_seg)
     return kernels.pair_rowsum_plain(*args[:3], axis.ids, axis.n_seg)
 
 
 def _library(name, args):
-    """One PyTorch call computing the same function, or None."""
-    if name == "sampson_score":
+    """One PyTorch call computing the same function, or None; for B5 the
+    pair index_select + einsum, timed together."""
+    if name in ("sampson_score", "huber_weight_cost"):
         return None
     axis = args[-1]
+    if name == "gather_dot":
+        tab, U, ids = args[0], args[1], axis.ids
+        k = tab.shape[1]
+        U3 = U.view(U.shape[0] // k, k, U.shape[1])
+
+        def call():
+            return torch.einsum("rko,ko->ro", U3, tab.T.index_select(1, ids))
+        return call
     if name == "gather":
         tab, ids = args[0], axis.ids
 
@@ -338,6 +405,45 @@ def _sum_bound(name, args):
     return (2.0 ** -24 * depth + 2.0 ** -53 * axis.num_obs) * abs_sum
 
 
+def huber_reference(r2, delta):
+    """(w, c, bound_w, bound_c): B6's weight and cost in f64 of the f32
+    inputs with the kernel's f32 constants (delta, delta^2, 2 delta and the
+    1e-30 clamp as f32 values), and the first-order bound on the kernel's
+    own roundings, each at most u = 2^-24 relative: w = d / sqrt(x) takes
+    the square root's and the division's, 2u |w|; c = 2d sqrt(x) - d^2 the
+    square root's and the product's on 2d sqrt(x), and the difference's on
+    |c|, 2u 2d sqrt(x) + u |c|. Inside delta both outputs are exact (1 and
+    x), and the kernel and the reference take the same branch, comparing
+    the same f32 x with the same f32 delta^2. Not a tuned number."""
+    u = 2.0 ** -24
+
+    def f32(v):
+        return float(np.float32(v))
+    d, d2, two_d = f32(delta), f32(delta * delta), f32(2.0 * delta)
+    x = r2.double()
+    rn = torch.sqrt(torch.clamp(x, min=f32(1e-30)))
+    inside = x <= d2
+    zero = torch.zeros_like(x)
+    w = torch.where(inside, torch.ones_like(x), d / rn)
+    c = torch.where(inside, x, two_d * rn - d2)
+    # plus the f64 reference's own few roundings
+    bw = torch.where(inside, zero, (2 * u + 2.0 ** -50) * w)
+    bc = torch.where(inside, zero, (2 * u + 2.0 ** -50) * two_d * rn
+                     + (u + 2.0 ** -50) * c.abs())
+    return w, c, bw, bc
+
+
+def _dot_bound(args):
+    """Per output of B5, 2^-24 * k * sum_j |U[r*k + j] tab[ids, j]|: the
+    kernel sums its k products left to right from 0, each product and add
+    rounded once, so the first product passes k roundings; plus the f64
+    reference's own 2^-53 * k. Not a tuned number."""
+    tab, U, axis = _f64(args)
+    k = tab.shape[1]
+    return (2.0 ** -24 + 2.0 ** -53) * k * kernels.gather_dot_plain(
+        tab.abs(), U.abs(), axis.ids)
+
+
 def _integer_args(name, args, gen):
     """The same shapes and axis, values small integers (exact f32 sums)."""
     lim = 8 if name == "rowsum" else 4
@@ -355,6 +461,27 @@ def check_case(name, args, gen) -> float:
     same inputs; raises outside the stated tolerance. Returns the largest
     absolute difference."""
     got = getattr(kernels, name)(*args)
+    if name == "huber_weight_cost":
+        plain = _plain(name, args)  # f32, on the card
+        if not (torch.equal(got[0], plain[0])
+                and torch.equal(got[1], plain[1])):
+            raise AssertionError(f"{name}: not bit for bit the plain f32 "
+                                 "version")
+        w, c, bw, bc = huber_reference(*args)
+        err_w, err_c = (got[0].double() - w).abs(), (got[1].double() - c).abs()
+        if bool((err_w > bw).any()) or bool((err_c > bc).any()):
+            raise AssertionError(f"{name}: error {float(err_w.max())}, "
+                                 f"{float(err_c.max())} above the rounding "
+                                 "bound")
+        return max(float(err_w.max()), float(err_c.max()))
+    if name == "gather_dot":
+        err = (got.double() - _plain(name, _f64(args))).abs()
+        if not bool(torch.isfinite(got).all()) \
+                or bool((err > _dot_bound(args)).any()):
+            raise AssertionError(f"{name} {case_label(name, args)}: error "
+                                 f"{float(err.max())} above the rounding "
+                                 "bound, or non-finite")
+        return float(err.max())
     if name == "sampson_score":
         r, bound = sampson_bound(*args)
         err = (got.double() - r).abs()
@@ -416,6 +543,9 @@ def case_work(name, args):
     if name == "sampson_score":
         M = args[0].shape[1]
         return f * 16 * M, SAMPSON_OPS * M
+    if name == "huber_weight_cost":
+        O = args[0].shape[0]
+        return f * 3 * O, HUBER_OPS * O
     if name == "projection_resid_jac":
         O = args[0].shape[1]
         zdim = 25 if args[7] is None else 31
@@ -427,6 +557,9 @@ def case_work(name, args):
     if name == "gather":
         T, k = args[0].shape
         return f * (T * k + k * O + O), 0
+    if name == "gather_dot":
+        (T, k), rows = args[0].shape, args[1].shape[0]
+        return f * (T * k + rows * O + O + rows // k * O), 2 * rows * O
     if name == "rowsum":
         k = args[0].shape[0]
         return f * k * O + index_bytes + f * n_seg * k, k * O
@@ -459,12 +592,18 @@ def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
 def case_label(name, args):
     if name == "sampson_score":
         return f"M={args[0].shape[1]}"
+    if name == "huber_weight_cost":
+        return f"O={args[0].shape[0]} delta={args[1]}"
     if name == "projection_resid_jac":
         return f"zdim={25 if args[7] is None else 31} O={args[0].shape[1]}"
     axis = args[-1]
     if name == "pair_rowsum":
         return (f"n_seg={axis.n_seg} R={len(args[2])} "
                 f"terms={sum(len(t) for t in args[2])} O={axis.num_obs}")
+    if name == "gather_dot":
+        k = args[0].shape[1]
+        return (f"n_seg={axis.n_seg} k={k} nr={args[1].shape[0] // k} "
+                f"O={axis.num_obs}")
     k = args[0].shape[0] if name == "rowsum" else args[0].shape[1]
     return f"n_seg={axis.n_seg} k={k} O={axis.num_obs}"
 
@@ -488,9 +627,12 @@ def measure_case(name, args, gen, peak_bw, peak_flops, on_path=True):
 
 def _path_summary(cases, calls, launches):
     """A kernel's per-launch numbers on one path, averaged over the path's
-    shapes weighted by their calls in the recorded run."""
+    shapes weighted by their calls in the recorded run; only the launches
+    where the path's inputs were not recorded."""
     on = [(c, calls[i]) for i, c in enumerate(cases) if c["on_path"]]
     n = sum(w for _, w in on)
+    if not n:
+        return dict(launches=launches)
 
     def mean(k):
         if any(c[k] is None for c, _ in on):
@@ -504,16 +646,18 @@ def _path_summary(cases, calls, launches):
 
 def kernel_summary(name, paths):
     """One entry per kernel. paths: {path: (cases, calls per recorded run,
-    launches in the path's counted run)}. The top-level numbers are the
-    paths' means weighted by their launches; each path's own are under
-    "paths"."""
+    launches in the path's counted run)}. `launches` sums every path's;
+    the other top-level numbers are the timed paths' means weighted by
+    their launches; each path's own are under "paths"."""
     per = {p: _path_summary(*v) for p, v in paths.items()}
     total = sum(v["launches"] for v in per.values())
+    timed = [v for v in per.values() if "ms" in v]
+    weight = sum(v["launches"] for v in timed)
 
     def mean(k):
-        if any(v[k] is None for v in per.values()):
+        if any(v[k] is None for v in timed):
             return None
-        return sum(v[k] * v["launches"] for v in per.values()) / total
+        return sum(v[k] * v["launches"] for v in timed) / weight
     source, replaces = REPLACES[name]
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=total,
@@ -522,7 +666,7 @@ def kernel_summary(name, paths):
                 ms=mean("ms"), plain_ms=mean("plain_ms"),
                 bound_ms=mean("bound_ms"),
                 bound_by="bytes" if all(v["bound_by"] == "bytes"
-                                        for v in per.values())
+                                        for v in timed)
                 else "operations",
                 library_ms=mean("library_ms"), paths=per,
                 cases={p: v[0] for p, v in paths.items()})
@@ -640,6 +784,266 @@ def compare_runs(a, b, what: str) -> dict:
             raise AssertionError(f"{what}: {k} differs by {d} "
                                  f"(scale {scale})")
     return diffs
+
+
+# ----------------------------------------------------------------------------
+# phase 5: stages 4-6 (track establishment, global positioning, iterated
+# bundle adjustment) as glomap_tpu/controllers/global_mapper.py:175-267
+# composes them
+# ----------------------------------------------------------------------------
+
+
+def _now(device) -> float:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return time.perf_counter()
+
+
+def deregister_unsupported(scene, tracks) -> int:
+    """The mapper's end-of-pipeline deregistration (global_mapper.py:336),
+    skipped when the tracks are empty: the reference keeps its frames
+    then, where the JAX package drops every one (ROADMAP C.1)."""
+    if tracks.num_obs == 0:
+        return 0
+    return gpm.deregister_unsupported_frames(scene, tracks)
+
+
+def stage_4(scene, vg):
+    """Track establishment and selection: (tracks, report)."""
+    t0 = time.perf_counter()
+    full = establish_full_tracks(scene, vg)
+    tracks = find_tracks_for_problem(scene, full)
+    return tracks, {"seconds": time.perf_counter() - t0,
+                    "tracks_full": full.num_tracks,
+                    "tracks": tracks.num_tracks,
+                    "observations": tracks.num_obs}
+
+
+def stage_5(scene, vg, tracks, device, dtype=torch.float32) -> dict:
+    """Global positioning and its filters, normalization and rescue."""
+    thr = InlierThresholds()
+    t0 = _now(device)
+    undistort_images(scene, device=device)
+    gp = {}
+    t1 = _now(device)
+    if not gpm.solve_global_positioning(scene, vg, tracks,
+                                        GlobalPositionerOptions(),
+                                        dtype=dtype, device=device,
+                                        stats=gp):
+        raise AssertionError("stage 5: global positioning failed")
+    gp["seconds"] = _now(device) - t1
+    removed = {
+        "angle_obs": track_filter.filter_tracks_by_angle(
+            scene, tracks, thr.max_angle_error),
+        "triangulation_angle_tracks":
+            track_filter.filter_tracks_by_triangulation_angle(
+                scene, tracks, thr.min_triangulation_angle),
+        "reprojection_obs": track_filter.filter_tracks_by_reprojection(
+            scene, tracks, 10 * thr.max_reprojection_error)}
+    normalize_reconstruction(scene, tracks)
+    removed["rescued_frames"] = gpm.rescue_unplaced_frames(scene, vg, tracks)
+    return {"seconds": _now(device) - t0, "gp": gp, "removed": removed}
+
+
+def stage_6(scene, tracks, device, dtype=torch.float32,
+            rounds=NUM_BA_ROUNDS) -> dict:
+    """Iterated BA (position-only, then full) with normalization, the ray
+    refresh and the progressive reprojection filter with its early exit
+    (under 0.1% of the tracks filtered); then the final filters and the
+    deregistration."""
+    thr = InlierThresholds()
+    t0 = _now(device)
+    ba, progressive = [], []
+    ite = 0
+    while ite < rounds:
+        prev_cam_params = scene.cam_params.copy()
+        for opts in (BundleAdjusterOptions(optimize_rotations=False),
+                     BundleAdjusterOptions()):
+            st = {}
+            t1 = _now(device)
+            if not solve_bundle_adjustment(scene, tracks, opts, dtype=dtype,
+                                           device=device, stats=st):
+                raise AssertionError("stage 6: bundle adjustment failed")
+            st["seconds"] = _now(device) - t1
+            ba.append(st)
+        normalize_reconstruction(scene, tracks)
+        # BA moved the intrinsics: re-lift the rays before the
+        # normalized-space filter (global_mapper.cc:237-238)
+        if not np.array_equal(prev_cam_params, scene.cam_params):
+            undistort_images(scene, device=device)
+        status, filtered = True, 0
+        while status and ite < rounds:
+            n = track_filter.filter_tracks_by_reprojection(
+                scene, tracks, max(3 - ite, 1) * thr.max_reprojection_error)
+            progressive.append(n)
+            filtered += n
+            if filtered > 1e-3 * max(tracks.num_tracks, 1):
+                status = False
+            else:
+                ite += 1
+        if status:
+            break
+    final = {
+        "reprojection_obs": track_filter.filter_tracks_by_reprojection(
+            scene, tracks, thr.max_reprojection_error),
+        "triangulation_angle_tracks":
+            track_filter.filter_tracks_by_triangulation_angle(
+                scene, tracks, thr.min_triangulation_angle),
+        "deregistered_frames": deregister_unsupported(scene, tracks)}
+    return {"seconds": _now(device) - t0, "ba": ba,
+            "progressive_obs_removed": progressive, "final_removed": final}
+
+
+def center_errors(scene, gt_centers) -> np.ndarray:
+    """Distances of the registered frames' centers, Sim3-aligned by
+    umeyama_alignment, to their ground truth."""
+    reg = scene.frame_registered
+    est, gt = scene.frame_centers()[reg], gt_centers[reg]
+    s, R, t = umeyama_alignment(est, gt)
+    return np.linalg.norm(apply_sim3(s, R, t, est) - gt, axis=-1)
+
+
+def _state(scene, tracks):
+    return (scene.frame_trans, scene.frame_registered, scene.cam_params,
+            tracks.xyz, tracks.valid, tracks.obs_valid)
+
+
+def capture_gp_args(run) -> tuple:
+    """run() with _solve_gp wrapped; the positional arguments of its first
+    call."""
+    captured = []
+    original = gpm._solve_gp
+
+    def recorded(*args):
+        if not captured:
+            captured.append(args)
+        return original(*args)
+    gpm._solve_gp = recorded
+    try:
+        run()
+    finally:
+        gpm._solve_gp = original
+    return captured[0]
+
+
+def gp_card_vs_cpu(args) -> dict:
+    """CPU_ITERS LM iterations of _solve_gp, no early exit, on the card and
+    on the CPU's plain path (f32) from the same arguments."""
+    def three(a):
+        return gpm._solve_gp(*a[:14], 0.0, CPU_ITERS, *a[16:])
+    card = three(args)
+    cpu = three(tuple(x.cpu() if isinstance(x, torch.Tensor) else x
+                      for x in args))
+    if not card[3] == cpu[3] == CPU_ITERS:
+        raise AssertionError(f"GP: {card[3]} vs {cpu[3]} LM iterations")
+    cost_card, cost_cpu = float(card[2]), float(cpu[2])
+    rel = abs(cost_card - cost_cpu) / abs(cost_cpu)
+    if not rel <= GP_COST_RTOL:
+        raise AssertionError(f"GP card vs CPU: cost {cost_card} vs "
+                             f"{cost_cpu}")
+    out = {"cost_rel": rel, "cg_iters": [card[6], cpu[6]]}
+    for name, i in (("centers", 0), ("points", 1)):
+        x, y = card[i].double().cpu(), cpu[i].double()
+        out[f"{name}_max_diff_over_scale"] = float(
+            (x - y).abs().max() / y.abs().max())
+    return out
+
+
+def stages_phase(scene, vg, dev, gen, peak_bw, peak_flops):
+    """Phase 5 on phase 4's filtered scene: (report, {kernel: (cases,
+    calls)} per path, launches per stage)."""
+    gt_centers = scene.frame_centers()  # the generator's poses
+    tracks, s4 = stage_4(scene, vg)
+    print(f"# stage 4: {s4['tracks']} tracks of {s4['tracks_full']}, "
+          f"{s4['observations']} observations in {s4['seconds']:.2f} s",
+          file=sys.stderr)
+    # every kernel input of one GP LM iteration; _solve_gp's arguments
+    gp_args = None
+
+    def gp_one():
+        nonlocal gp_args
+        gp_args = capture_gp_args(lambda: gpm.solve_global_positioning(
+            scene.copy(), vg, tracks.copy(),
+            GlobalPositionerOptions(max_num_iterations=1), device=dev))
+    gp_cases = record_cases(gp_one)
+    card_vs_cpu = gp_card_vs_cpu(gp_args)
+    del gp_args
+
+    # stage 5 twice from the same state, counted; then stage 6
+    torch.cuda.reset_peak_memory_stats(dev)
+    runs = []
+    for _ in range(2):
+        sc, tr = scene.copy(), tracks.copy()
+        kernels.reset_launch_counts()
+        rep5 = stage_5(sc, vg, tr, dev)
+        runs.append((sc, tr, rep5, dict(kernels.LAUNCHES)))
+    (sc, tr, rep5, gp_launches), other = runs[0], runs[1]
+    if not all(np.array_equal(a, b) for a, b in zip(
+            _state(sc, tr), _state(other[0], other[1]))):
+        raise AssertionError("stage 5: two runs on the card differ")
+    del runs, other
+    if not all(gp_launches[COUNTER.get(n, n)] > 0 for n in GP_KERNELS):
+        raise AssertionError(f"stage 5: a kernel was not launched: "
+                             f"{gp_launches}")
+    err5 = center_errors(sc, gt_centers)
+    # every kernel input of one BA LM iteration from stage 5's result
+    ba_cases = record_cases(lambda: solve_bundle_adjustment(
+        sc.copy(), tr.copy(), BundleAdjusterOptions(
+            optimize_rotations=False, max_num_iterations=1), device=dev))
+    kernels.reset_launch_counts()
+    rep6 = stage_6(sc, tr, dev)
+    ba_launches = dict(kernels.LAUNCHES)
+    peak_bytes = torch.cuda.max_memory_allocated(dev)
+    if not all(ba_launches[COUNTER.get(n, n)] > 0 for n in BA_KERNELS):
+        raise AssertionError(f"stage 6: a kernel was not launched: "
+                             f"{ba_launches}")
+    err6 = center_errors(sc, gt_centers)
+    if not (err5.max() < GP_CENTER_BOUND and err6.max() < GP_CENTER_BOUND
+            and err6.max() <= err5.max()):
+        raise AssertionError(f"stages 5-6: center errors {err5.max()} "
+                             f"(GP), {err6.max()} (BA), bound "
+                             f"{GP_CENTER_BOUND}")
+    valid_obs = int((tr.obs_valid & tr.valid[tr.obs_track]).sum())
+    if not valid_obs or not np.isfinite(tr.xyz[tr.valid]).all():
+        raise AssertionError("stage 6: no valid observation, or non-finite "
+                             "points")
+
+    per_path = {}
+    for path, cases, names in (("stage5_gp", gp_cases, GP_KERNELS),
+                               ("stage6_ba", ba_cases, BA_KERNELS)):
+        per_path[path] = {n: ([], []) for n in names}
+        for (name, *_), (args, calls) in cases.items():
+            res = measure_case(name, args, gen, peak_bw, peak_flops)
+            per_path[path][name][0].append(res)
+            per_path[path][name][1].append(calls)
+    gp = rep5["gp"]
+    ba_lm = sum(b["lm_iters"] for b in rep6["ba"])
+    ba_s = sum(b["seconds"] for b in rep6["ba"])
+    report = {
+        "problem": (f"phase 4's scene after its filters: "
+                    f"{scene.num_frames} frames, {vg.num_matches} matches, "
+                    f"f32"),
+        "stage4": s4, "stage5_seconds": rep5["seconds"],
+        "stage6_seconds": rep6["seconds"],
+        "gp": {**gp, "lm_iters_per_s": gp["lm_iters"] / gp["seconds"]},
+        "stage5_removed": rep5["removed"],
+        "ba_calls": len(rep6["ba"]), "ba_lm_iters": ba_lm,
+        "ba_lm_iters_per_s": ba_lm / ba_s, "ba": rep6["ba"],
+        "stage6_progressive_obs_removed": rep6["progressive_obs_removed"],
+        "stage6_final_removed": rep6["final_removed"],
+        "valid_observations": valid_obs,
+        "registered_frames": int(sc.frame_registered.sum()),
+        "center_error_gp": {"max": float(err5.max()),
+                            "median": float(np.median(err5))},
+        "center_error_ba": {"max": float(err6.max()),
+                            "median": float(np.median(err6))},
+        "center_bound": GP_CENTER_BOUND,
+        "gp_card_vs_cpu_f32_after_3": card_vs_cpu,
+        "stage5_bitwise_reproducible": True,
+        "peak_device_bytes": peak_bytes,
+        "launches_stage5": gp_launches, "launches_stage6": ba_launches}
+    return report, per_path, {"stage5_gp": gp_launches,
+                              "stage6_ba": ba_launches}
 
 
 def main() -> int:
@@ -804,11 +1208,17 @@ def main() -> int:
     if not (0.0 < inl.mean() < 1.0 and np.isfinite(runs[0][1]).all()):
         raise AssertionError("sweep: degenerate classification")
 
+    # phase 5: stages 4-6 from the filtered sweep result
+    stages, per_stage, stage_launches = stages_phase(
+        scene_f, vg_f, dev, gen, peak_bw, peak_flops)
+
+    paths = [("ba", per_kernel, launches),
+             ("inlier_sweep", per_sweep, sweep_launches)] + \
+        [(p, per_stage[p], stage_launches[p]) for p in per_stage]
     entries = [kernel_summary(n, {
-        p: (v[n][0], v[n][1], l[COUNTER.get(n, n)])
-        for p, v, l in (("ba", per_kernel, launches),
-                        ("inlier_sweep", per_sweep, sweep_launches))
-        if n in v}) for n in REPLACES]
+        p: v.get(n, ([], [])) + (l[COUNTER.get(n, n)],)
+        for p, v, l in paths
+        if n in v or l[COUNTER.get(n, n)] > 0}) for n in REPLACES]
     sweep_s = [r[2] for r in runs]
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"slice": {
@@ -841,6 +1251,7 @@ def main() -> int:
         "card_vs_cpu_f32": disagree, "cpu_f32_s": cpu[2],
         "pairs_removed": removed, "component_images": component,
         "card": card}}))
+    print(json.dumps({"stages_4_6": {**stages, "card": card}}))
     print(card)
     # the run used one card
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,12 @@
 """Options of the ported stages (the port's own copy).
 
 Same fields and defaults as glomap_tpu/config.py InlierThresholds,
-OptimizationBase and BundleAdjusterOptions, which mirror the reference's
-InlierThresholdOptions (glomap/types.h), OptimizationBaseOptions
-(glomap/estimators/optimization_base.h) and BundleAdjusterOptions
+OptimizationBase, TrackEstablishmentOptions, GlobalPositionerOptions and
+BundleAdjusterOptions, which mirror the reference's InlierThresholdOptions
+(glomap/types.h), OptimizationBaseOptions
+(glomap/estimators/optimization_base.h), TrackEstablishmentOptions
+(glomap/controllers/track_establishment.h), GlobalPositionerOptions
+(glomap/estimators/global_positioning.h) and BundleAdjusterOptions
 (glomap/estimators/bundle_adjustment.h).
 """
 
@@ -31,6 +34,35 @@ class OptimizationBase:
     thres_loss_function: float = 1e-1
     max_num_iterations: int = 100
     function_tolerance: float = 1e-5
+
+
+@dataclass
+class TrackEstablishmentOptions:
+    thres_inconsistency: float = 10.0
+    min_num_tracks_per_view: int = -1
+    min_num_view_per_track: int = 3
+    max_num_view_per_track: int = 100
+    max_num_tracks: int = 10_000_000
+
+
+@dataclass
+class GlobalPositionerOptions(OptimizationBase):
+    constraint_type: str = "ONLY_POINTS"  # ONLY_CAMERAS, POINTS_AND_CAMERAS[_BALANCED]
+    constraint_reweight_scale: float = 1.0
+    generate_random_positions: bool = True
+    generate_random_points: bool = True
+    generate_scales: bool = True
+    optimize_positions: bool = True
+    optimize_points: bool = True
+    optimize_scales: bool = True
+    min_num_view_per_track: int = 3
+    seed: int = 1
+    thres_loss_function: float = 1e-1  # Huber
+    # forcing tolerance of the inner Jacobi-PCG on the frame system (the
+    # role of BundleAdjusterOptions.cg_relative_tolerance)
+    cg_relative_tolerance: float = 1e-2
+    # inner-PCG iteration cap per LM step
+    cg_max_iterations: int = 30
 
 
 @dataclass

@@ -32,7 +32,7 @@ from glomap_tpu_torch.math import rotation as rotm
 from glomap_tpu_torch.ops import camera_models as cm
 from glomap_tpu_torch.ops import kernels
 from glomap_tpu_torch.ops.linear import cg_generic, inv3x3
-from glomap_tpu_torch.ops.segment_ops import make_axis_ops, make_axis_pair_ops
+from glomap_tpu_torch.ops.segment_ops import make_axis_pair_ops
 from glomap_tpu_torch.scene.arrays import Scene, Tracks
 
 # canonical distortion slots used by each COLMAP model
@@ -87,18 +87,6 @@ def order_obs_for_locality(o_frame, o_point, num_tracks: int):
     return obs_perm, point_perm, new_of_old
 
 
-def _huber_weight(r2, delta):
-    return torch.where(r2 <= delta * delta, torch.ones_like(r2),
-                       delta / torch.sqrt(torch.clamp(r2, min=1e-30)))
-
-
-def _huber_cost(r2, delta):
-    d2 = delta * delta
-    return torch.where(r2 <= d2, r2,
-                       2.0 * delta * torch.sqrt(torch.clamp(r2, min=1e-30))
-                       - d2)
-
-
 def _residual_one(qf, tf, qs, ts, cpar, kind, X, uv, T, z):
     """Residual for one observation at tangent update z (25 or 31):
     [frame w(3), frame dt(3), dX(3), intr(16)[, sensor ws(3), dts(3)]]."""
@@ -151,11 +139,6 @@ def _bmv(A, v):
 def _jt(J3, y):
     """J^T y rows: J3 (2, k, O), y (2, O) -> (k, O)."""
     return J3[0] * y[0] + J3[1] * y[1]
-
-
-def _app(J3, v_o):
-    """J v rows: J3 (2, k, O), v_o (k, O) -> (2, O)."""
-    return (J3 * v_o).sum(1)
 
 
 def _rows_mm(A3, B3):
@@ -217,13 +200,15 @@ def _solve_ba(frame_quat, frame_trans, cam_params, points,
         t.to(device=dev, dtype=torch.int64)
         for t in (o_frame, o_cam, o_point, o_sensor))
 
-    reduce_f, gather_f, rpairs_f = make_axis_pair_ops(o_frame, F)
-    _, gather_c, rpairs_c = make_axis_pair_ops(o_cam, C)
-    reduce_p, gather_p, rpairs_p = make_axis_pair_ops(o_point, num_points)
+    reduce_f, gather_f, rpairs_f, _ = make_axis_pair_ops(o_frame, F)
+    _, gather_c, rpairs_c, _ = make_axis_pair_ops(o_cam, C)
+    reduce_p, gather_p, rpairs_p, gdot_p = make_axis_pair_ops(o_point,
+                                                              num_points)
     # frame-sensor axis: the pose tables and the fused CG matvec ride it
-    reduce_fs, gather_fs = make_axis_ops(o_frame * S + o_sensor, F * S)
+    reduce_fs, gather_fs, _, gdot_fs = make_axis_pair_ops(
+        o_frame * S + o_sensor, F * S)
     if optimize_rig:
-        _, gather_s, rpairs_s = make_axis_pair_ops(o_sensor, num_sensors)
+        _, gather_s, rpairs_s, _ = make_axis_pair_ops(o_sensor, num_sensors)
 
     if cam_kind is None:
         cam_kind = torch.zeros((C,), dtype=torch.int64, device=dev)
@@ -273,8 +258,9 @@ def _solve_ba(frame_quat, frame_trans, cam_params, points,
         # the projection kernel's residual; its Jacobian goes unused
         rows, _ = persp_rows(fq, ft, sq, st, cp, X)
         rT, _ = kernels.projection_resid_jac(*rows)
-        r2 = rT[0] * rT[0] + rT[1] * rT[1]
-        return torch.sum(o_w * _huber_cost(r2, huber_delta))
+        _, c = kernels.huber_weight_cost(rT[0] * rT[0] + rT[1] * rT[1],
+                                         huber_delta)
+        return torch.sum(o_w * c)
 
     def tie_g(g_raw):  # (C, 16) -> T^T g
         return _bmv(T_t, g_raw)
@@ -290,7 +276,9 @@ def _solve_ba(frame_quat, frame_trans, cam_params, points,
         rows, ts3 = persp_rows(fq, ft, sq, st, cp, X)
         rT, JT = kernels.projection_resid_jac(
             *rows, ts3 if optimize_rig else None)
-        w = o_w * _huber_weight(rT[0] * rT[0] + rT[1] * rT[1], huber_delta)
+        w, _ = kernels.huber_weight_cost(rT[0] * rT[0] + rT[1] * rT[1],
+                                         huber_delta)
+        w = o_w * w
         sw = torch.sqrt(w)
         # whitened rows: every reduction below is a plain product sum
         J3 = (JT * sw).reshape(2, zdim, num_obs)
@@ -322,10 +310,11 @@ def _solve_ba(frame_quat, frame_trans, cam_params, points,
             eye3.expand(num_points, 3, 3)
 
         # fused (frame (+) camera (+) sensor) matvec operators: one
-        # (F*S, 22/28)-column table gather and one fs reduction per
+        # (F*S, 22/28)-column J * gather (B5) and one fs reduction per
         # direction, plus tiny S-sized folds
         Jfc = torch.cat([Jf, Jc] + ([Js] if optimize_rig else []), dim=1)
         kfc = 28 if optimize_rig else 22
+        Jfc2 = Jfc.reshape(2 * kfc, num_obs)
 
         def J_apply(vf, vc, vs):
             vct = _bmv(cam_T, vc)  # tie first
@@ -334,7 +323,7 @@ def _solve_ba(frame_quat, frame_trans, cam_params, points,
             if optimize_rig:
                 parts.append(vs[None].expand(F, S, 6))
             tabv = torch.cat(parts, dim=2).reshape(F * S, kfc)
-            return _app(Jfc, gather_fs(tabv))
+            return gdot_fs(tabv, Jfc2)
 
         def JT_scatter(y):
             acc = reduce_fs(_jt(Jfc, y)).reshape(F, S, kfc)
@@ -348,7 +337,7 @@ def _solve_ba(frame_quat, frame_trans, cam_params, points,
             return reduce_p(_jt(Jp, J_apply(vf, vc, vs)))
 
         def Hcp_apply(vp):
-            return JT_scatter(_app(Jp, gather_p(vp)))
+            return JT_scatter(gdot_p(vp, Jp2))
 
         # Schur rhs: b = -g_cam - H_cp Bp_inv (-g_p)
         hf, hc, hs = Hcp_apply(_bmv(Bp_inv, -g_p))
@@ -382,7 +371,7 @@ def _solve_ba(frame_quat, frame_trans, cam_params, points,
             vf, vc, vs = unpack(v)
             y = J_apply(vf, vc, vs)
             zp = _bmv(Bp_inv, reduce_p(_jt(Jp, y)))
-            y2 = _app(Jp, gather_p(zp))
+            y2 = gdot_p(zp, Jp2)
             out_f, out_c, out_s = JT_scatter(y - y2)
             out_f = out_f + d_f * vf
             out_c = out_c + d_c * vc
@@ -564,13 +553,15 @@ def build_ba_inputs(scene: Scene, tracks: Tracks,
 def solve_bundle_adjustment(scene: Scene, tracks: Tracks,
                             opts: BundleAdjusterOptions | None = None,
                             dtype: torch.dtype = torch.float32,
-                            device=None) -> bool:
+                            device=None, stats: dict | None = None) -> bool:
     """Run global BA; updates scene poses/intrinsics and track points.
 
     Counterpart of BundleAdjuster::Solve. Runs on CUDA unless `device`
     says otherwise; with device=None and no CUDA it raises. The JAX
     package's bucket padding of the observation axis (a recompile
-    workaround) and its host-segmented LM calls are gone."""
+    workaround) and its host-segmented LM calls are gone. A `stats` dict,
+    if given, receives the solve's observations and its LM and CG
+    iterations ("obs", "lm_iters", "cg_iters")."""
     from glomap_tpu_torch.utils.carry import ba_inputs_from_arrays
 
     device = resolve_device(device)
@@ -610,6 +601,8 @@ def solve_bundle_adjustment(scene: Scene, tracks: Tracks,
         it, float(cost), t1 - t0, time.monotonic() - t1,
         len(obs["o_frame"]), cg_total, cg_total / max(it, 1),
         int(opts.cg_max_iterations))
+    if stats is not None:
+        stats.update(obs=len(obs["o_frame"]), lm_iters=it, cg_iters=cg_total)
     if not (np.all(np.isfinite(fq)) and np.all(np.isfinite(ft)) and
             np.all(np.isfinite(cp)) and np.all(np.isfinite(X))):
         return False

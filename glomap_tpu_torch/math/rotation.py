@@ -2,7 +2,8 @@
 
 Counterpart of glomap_tpu/math/rotation.py (quat_normalize, quat_mul,
 quat_conj, quat_rotate, quat_to_rotmat, rotmat_to_quat, so3_exp_quat,
-relative_quat_angle_rad, rigid_inverse, rigid_compose). Conventions are
+relative_quat_angle_rad, rigid_apply, rigid_inverse, rigid_compose,
+pose_center). Conventions are
 COLMAP's:
 quaternions are (w, x, y, z) with x' = R(q) x, poses are cam_from_world,
 and every function takes arbitrary leading batch dimensions.
@@ -98,6 +99,11 @@ def relative_quat_angle_rad(q1: torch.Tensor,
     return 2.0 * torch.arccos(torch.clamp(dot, -1.0, 1.0))
 
 
+def rigid_apply(q: torch.Tensor, t: torch.Tensor,
+                x: torch.Tensor) -> torch.Tensor:
+    return quat_rotate(q, x) + t
+
+
 def rigid_inverse(q: torch.Tensor, t: torch.Tensor):
     qi = quat_conj(q)
     return qi, -quat_rotate(qi, t)
@@ -106,3 +112,9 @@ def rigid_inverse(q: torch.Tensor, t: torch.Tensor):
 def rigid_compose(q2, t2, q1, t1):
     """(q2, t2) o (q1, t1): apply (q1, t1) first."""
     return quat_mul(q2, q1), quat_rotate(q2, t1) + t2
+
+
+def pose_center(q: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Projection center -R^T t of a cam_from_world pose (reference
+    glomap/math/rigid3d.h CenterFromPose)."""
+    return -quat_rotate(quat_conj(q), t)

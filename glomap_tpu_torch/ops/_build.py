@@ -25,6 +25,8 @@ SOURCES = {
     "gather": "gather.cu",
     "rowsum": "rowsum.cu",
     "pair_rowsum": "pair_rowsum.cu",
+    "gather_dot": "gather_dot.cu",
+    "huber": "huber.cu",
     "sampson": "sampson.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

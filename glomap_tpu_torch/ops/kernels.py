@@ -4,7 +4,8 @@ Counterpart of glomap_tpu/ops/pallas_kernels.py. Each kernel comes in
 three parts:
 
   * a wrapper (`projection_resid_jac`, `gather`, `rowsum`,
-    `pair_rowsum`, `sampson_score`) that takes the plain version for a
+    `pair_rowsum`, `gather_dot`, `huber_weight_cost`, `sampson_score`)
+    that takes the plain version for a
     CPU tensor and otherwise launches the CUDA kernel (`_*_cuda`) or
     raises -- there is no fallback;
   * the plain PyTorch version (`*_plain`), the reference the tests and
@@ -30,7 +31,7 @@ import torch
 from glomap_tpu_torch.ops import _build
 
 LAUNCHES = {"projection_resid_jac": 0, "gather": 0, "rowsum": 0,
-            "pair_rowsum": 0, "sampson": 0}
+            "pair_rowsum": 0, "gather_dot": 0, "huber": 0, "sampson": 0}
 # the z-normalisation offset and denominator clamp of the Sampson error
 SAMPSON_EPS = 1e-12
 
@@ -265,6 +266,29 @@ def pair_rowsum_plain(U, V, pairs, ids, n_seg: int) -> torch.Tensor:
     return rowsum_plain(pair_rows(U, V, pairs), ids, n_seg)
 
 
+def gather_dot_plain(tab: torch.Tensor, U: torch.Tensor,
+                     ids: torch.Tensor) -> torch.Tensor:
+    """tab (T, k), U (nr*k, O), ids (O,) -> (nr, O) with
+    out[r, o] = sum_j U[r*k + j, o] * tab[ids[o], j]: J * gather(v)."""
+    k = tab.shape[1]
+    return (U.reshape(U.shape[0] // k, k, -1) * tab[ids].T[None]).sum(1)
+
+
+def huber_weight_cost_plain(r2: torch.Tensor, delta: float):
+    """Squared norms (O,) -> (IRLS weight, cost) of Ceres'
+    HuberLoss(delta): w = 1 and c = r2 inside delta, else w = delta / |r|
+    and c = 2 delta |r| - delta^2; |r| = sqrt(max(r2, 1e-30)). The
+    division is tensor by tensor, one rounding (`delta / rn` would be
+    rn.reciprocal() * delta in PyTorch, two)."""
+    d2 = delta * delta
+    rn = torch.sqrt(torch.clamp(r2, min=1e-30))
+    inside = r2 <= d2
+    w = torch.where(inside, torch.ones_like(r2),
+                    torch.full_like(rn, delta) / rn)
+    c = torch.where(inside, r2, (2.0 * delta) * rn - d2)
+    return w, c
+
+
 def sampson_score_plain(E9, x1T, x2T):
     """Squared Sampson error, E9 (9, M) row-major E per match, x1T, x2T
     (3, M) homogeneous points -> (M,); the body of
@@ -320,6 +344,22 @@ def pair_rowsum(U: torch.Tensor, V: torch.Tensor, pairs,
     return _pair_rowsum_cuda(U, V, pairs, axis)
 
 
+def gather_dot(tab: torch.Tensor, U: torch.Tensor,
+               axis: SegmentAxis) -> torch.Tensor:
+    """tab (n_seg, k), U (nr*k, O) -> (nr, O),
+    out[r, o] = sum_j U[r*k + j, o] * tab[ids[o], j]."""
+    if tab.device.type == "cpu":
+        return gather_dot_plain(tab, U, axis.ids)
+    return _gather_dot_cuda(tab, U, axis)
+
+
+def huber_weight_cost(r2: torch.Tensor, delta: float):
+    """(O,) squared norms -> (weights (O,), costs (O,)) of HuberLoss."""
+    if r2.device.type == "cpu":
+        return huber_weight_cost_plain(r2, delta)
+    return _huber_weight_cost_cuda(r2, delta)
+
+
 def sampson_score(E9: torch.Tensor, x1T: torch.Tensor,
                   x2T: torch.Tensor) -> torch.Tensor:
     """E9 (9, M), x1T (3, M), x2T (3, M) -> squared Sampson error (M,)."""
@@ -340,6 +380,8 @@ _SIGNATURES = {
     "gather": ("glomap_gather", [_P, _P, _P, _I, _I, _I, _P]),
     "rowsum": ("glomap_rowsum", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "pair_rowsum": ("glomap_pair_rowsum", [_P] * 6 + [_I] * 5 + [_P]),
+    "gather_dot": ("glomap_gather_dot", [_P] * 4 + [_I] * 4 + [_P]),
+    "huber": ("glomap_huber", [_P] * 3 + [ctypes.c_float] * 3 + [_I, _P]),
     "sampson": ("glomap_sampson", [_P] * 4 + [_I, _P]),
 }
 _entries: dict = {}
@@ -502,6 +544,46 @@ def _pair_rowsum_cuda(U, V, pairs, axis: SegmentAxis) -> torch.Tensor:
     _raise_on(rc, "pair_rowsum")
     LAUNCHES["pair_rowsum"] += 1
     return out
+
+
+def _gather_dot_cuda(tab: torch.Tensor, U: torch.Tensor,
+                     axis: SegmentAxis) -> torch.Tensor:
+    fn = _entry("gather_dot")
+    if tab.dim() != 2 or tab.shape[0] != axis.n_seg or tab.shape[1] == 0:
+        raise ValueError(f"gather_dot: table shape {tuple(tab.shape)}, "
+                         f"expected ({axis.n_seg}, k > 0)")
+    dev = tab.device
+    k, O = tab.shape[1], axis.num_obs
+    _check_rows("gather_dot tab", tab, axis.n_seg, k, dev)
+    rows = U.shape[0] if U.dim() == 2 else -1
+    if rows % k:
+        raise ValueError(f"gather_dot: U has {rows} rows, not a multiple "
+                         f"of k = {k}")
+    _check_rows("gather_dot U", U, rows, O, dev)
+    _check_axis(axis, O, dev)
+    nr = rows // k
+    out = torch.empty((nr, O), dtype=torch.float32, device=dev)
+    rc = fn(tab.data_ptr(), axis.ids.data_ptr(), U.data_ptr(),
+            out.data_ptr(), axis.n_seg, k, nr, O, _stream(dev))
+    _raise_on(rc, "gather_dot")
+    LAUNCHES["gather_dot"] += 1
+    return out
+
+
+def _huber_weight_cost_cuda(r2: torch.Tensor, delta: float):
+    fn = _entry("huber")
+    dev = r2.device
+    O = r2.shape[0] if r2.dim() == 1 else -1
+    _check_rows("huber_weight_cost r2", r2[None], 1, O, dev)
+    w = torch.empty((O,), dtype=torch.float32, device=dev)
+    c = torch.empty((O,), dtype=torch.float32, device=dev)
+    # the plain version's f32 constants: PyTorch rounds each Python
+    # scalar to the tensor's dtype, as ctypes.c_float does here
+    rc = fn(r2.data_ptr(), w.data_ptr(), c.data_ptr(), float(delta),
+            float(delta) * float(delta), 2.0 * float(delta), O, _stream(dev))
+    _raise_on(rc, "huber_weight_cost")
+    LAUNCHES["huber"] += 1
+    return w, c
 
 
 def _sampson_score_cuda(E9, x1T, x2T) -> torch.Tensor:

@@ -8,8 +8,7 @@ to work around the TPU's slow scatters and lane gathers. Here every axis
 builds its CSR once (`SegmentAxis.build`: stable argsort of the ids and
 offsets from bincount) and every gather and reduction goes through the
 kernels of ops/kernels.py, whose wrappers run the plain PyTorch version
-for CPU tensors and the CUDA kernel otherwise. gather_dot is not ported:
-no ported path uses it.
+for CPU tensors and the CUDA kernel otherwise.
 """
 
 from __future__ import annotations
@@ -33,14 +32,16 @@ def segment_ids_from_offsets(offsets: torch.Tensor,
 
 def make_axis_ops(idx: torch.Tensor, n_seg: int):
     """-> (reduce: (k, O) -> (n_seg, k), gather: (n_seg, k) -> (k, O))."""
-    reduce, gather, _ = make_axis_pair_ops(idx, n_seg)
+    reduce, gather, _, _ = make_axis_pair_ops(idx, n_seg)
     return reduce, gather
 
 
 def make_axis_pair_ops(idx: torch.Tensor, n_seg: int):
-    """-> (reduce, gather, reduce_pairs) where
-    reduce_pairs(U, V, pairs) is (n_seg, R) with
-    out[s, r] = sum_{o in s} sum_{(a, b) in pairs[r]} U[a, o] * V[b, o]."""
+    """-> (reduce, gather, reduce_pairs, gather_dot) where
+      reduce_pairs(U, V, pairs) is (n_seg, R) with
+        out[s, r] = sum_{o in s} sum_{(a, b) in pairs[r]} U[a, o] * V[b, o];
+      gather_dot(tab, U) is (nr, O) with
+        out[r, o] = sum_j U[r*k + j, o] * tab[idx[o], j]  (J * gather(v))."""
     axis = SegmentAxis.build(idx, n_seg)
 
     def reduce(vals):
@@ -52,4 +53,7 @@ def make_axis_pair_ops(idx: torch.Tensor, n_seg: int):
     def reduce_pairs(U, V, pairs):
         return kernels.pair_rowsum(U.contiguous(), V.contiguous(), pairs,
                                    axis)
-    return reduce, gather, reduce_pairs
+
+    def gather_dot(tab, U):
+        return kernels.gather_dot(tab.contiguous(), U.contiguous(), axis)
+    return reduce, gather, reduce_pairs, gather_dot

@@ -40,7 +40,7 @@ def _rigid_compose(q2, t2, q1, t1):
 
 def _pose_center(q, t):
     """Projection center -R^T t of cam_from_world poses (numpy)."""
-    return (-rotm.quat_rotate(rotm.quat_conj(_t(q)), _t(t))).numpy()
+    return rotm.pose_center(_t(q), _t(t)).numpy()
 
 
 @dataclass

@@ -52,6 +52,11 @@ def scene_from_jax(scene) -> Scene:
     return scene_from_arrays(_fields_of(scene, Scene))
 
 
+def tracks_from_jax(tracks) -> Tracks:
+    """The port's Tracks with copies of a JAX-package Tracks' fields."""
+    return tracks_from_arrays(_fields_of(tracks, Tracks))
+
+
 def view_graph_from_jax(vg) -> ViewGraph:
     """The port's ViewGraph with copies of a JAX-package ViewGraph's
     fields."""

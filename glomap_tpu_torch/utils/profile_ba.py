@@ -8,7 +8,7 @@ times N LM iterations on the host clock (ending in a synchronize), then
 traces W more with torch.profiler and prints one JSON line: LM
 iterations per second, the device time and launches per LM iteration,
 the device's busy share of the traced window, the time of each of the
-port's four kernels, the largest device kernels by time, and the host's
+port's six BA kernels, the largest device kernels by time, and the host's
 scalar reads (each one waits for the card). Counterpart of the JAX
 package's scripts/profile_ba.py. Without a CUDA device it raises.
 """
@@ -34,7 +34,7 @@ BENCH_CACHE = Path(__file__).resolve().parents[2] / ".bench_cache.npz"
 SETTINGS = dict(huber_delta=1.0, function_tol=0.0, cg_iters=30,
                 optimize_points=True, max_rejections=1 << 30)
 OUR_KERNELS = ("projection_kernel", "pair_rowsum_kernel", "rowsum_kernel",
-               "gather_kernel")
+               "gather_dot_kernel", "gather_kernel", "huber_kernel")
 
 
 def _ours(name: str):

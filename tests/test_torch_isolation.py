@@ -6,7 +6,8 @@
 * With device=None and no CUDA, the entry point raises instead of
   running on the CPU.
 * A kernel whose build fails raises; its CUDA launch never hands back
-  the plain version's result.
+  the plain version's result. The native track engine's loader raises
+  when g++ fails: it has no Python fallback.
 """
 
 import ast
@@ -121,6 +122,19 @@ def test_default_device_without_cuda_raises(monkeypatch):
         dtype=torch.float64, device="cpu")
 
 
+def test_gp_default_device_without_cuda_raises(monkeypatch):
+    """Global positioning too: device=None means CUDA, and without it the
+    solve raises before it touches the scene."""
+    from glomap_tpu_torch.estimators import global_positioning as tgp
+    from glomap_tpu_torch.scene.view_graph import ViewGraph
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    scene, tracks = _tiny_problem()
+    before = scene.frame_trans.copy()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tgp.solve_global_positioning(scene, ViewGraph(), tracks)
+    np.testing.assert_array_equal(scene.frame_trans, before)
+
+
 class _BuildFailed(RuntimeError):
     pass
 
@@ -154,10 +168,14 @@ def _launch_cases():
          (rows(2), rows(2), pairs, ax)),
         ("sampson_score", kernels._sampson_score_cuda,
          (rows(9), rows(3), rows(3))),
+        ("gather_dot", kernels._gather_dot_cuda,
+         (torch.randn(5, 4), rows(8), ax)),
+        ("huber_weight_cost", kernels._huber_weight_cost_cuda,
+         (torch.rand(O, generator=g), 1.0)),
     ]
 
 
-@pytest.mark.parametrize("case", range(5),
+@pytest.mark.parametrize("case", range(7),
                          ids=[c[0] for c in _launch_cases()])
 def test_cuda_launch_raises_when_build_fails(broken_build, case):
     name, launch, args = _launch_cases()[case]
@@ -167,7 +185,7 @@ def test_cuda_launch_raises_when_build_fails(broken_build, case):
     assert kernels.LAUNCHES == before
 
 
-@pytest.mark.parametrize("case", range(5),
+@pytest.mark.parametrize("case", range(7),
                          ids=[c[0] for c in _launch_cases()])
 def test_wrapper_takes_kernel_path_off_cpu(broken_build, case):
     """A tensor that is not on the CPU (here on the meta device) goes to
@@ -184,3 +202,21 @@ def test_wrapper_takes_kernel_path_off_cpu(broken_build, case):
         meta.append(a)
     with pytest.raises(_BuildFailed):
         wrapper(*meta)
+
+
+@pytest.mark.parametrize("fault", ["compile-error", "no-compiler"])
+def test_native_build_failure_raises(monkeypatch, tmp_path, fault):
+    """The track engine is built by g++ at first use; when that fails the
+    loader raises (no Python fallback) and leaves no library behind."""
+    from glomap_tpu_torch import native
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "native")
+    if fault == "compile-error":
+        monkeypatch.setattr(native, "CXX_FLAGS",
+                            native.CXX_FLAGS + ["-fno-such-option"])
+    else:
+        monkeypatch.setattr(native, "CXX", str(tmp_path / "no-such-g++"))
+    with pytest.raises(RuntimeError, match="g\\+\\+"):
+        native.establish_tracks(4, np.array([0, 2]), np.array([1, 3]))
+    assert native._lib is None
+    assert not list((tmp_path / "native").glob("*.so*"))

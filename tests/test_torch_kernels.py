@@ -1,11 +1,13 @@
-"""The plain PyTorch versions of the port's four kernels against the JAX
+"""The plain PyTorch versions of the port's kernels against the JAX
 package's Pallas kernels, both on the CPU.
 
 The cases are those of tests/test_pallas_kernels.py: the projection
 kernel over every camera kind with distortion, with and without the rig
 columns; the segment reductions and gathers with empty segments, a
 ragged tail, ids unsorted inside a window, and the J^T y, Gram and
-triple-term Schur-correction `pairs`. The Pallas kernels run in
+triple-term Schur-correction `pairs`; the Sampson score; the Huber
+sweep (B6, rtol 1e-15) and the fused J * gather (B5) at the path's
+shapes and on unsorted ids. The Pallas kernels run in
 interpret mode and x64, as the JAX suite runs them; the port goes through
 its wrappers, which take the plain version for CPU tensors. Inputs are
 made with numpy from a seed and handed to both packages.
@@ -341,3 +343,91 @@ def test_sampson_plain_matches_pallas_and_two_view(case):
         np.testing.assert_allclose(out.numpy()[20:24],
                                    np.asarray([1.0, 1e-6, 1e-14, 0.0]) / 1e-12,
                                    rtol=1e-12)
+
+
+# ----------------------------------------------------------------------------
+# Huber IRLS sweep (B6)
+# ----------------------------------------------------------------------------
+
+
+def _huber_r2():
+    """tests/test_pallas_kernels.py::test_huber_weight_cost_matches' inputs
+    plus r2 = 0, r2 = delta^2 exactly (for delta 1 and 0.5) and r2 below
+    the 1e-30 clamp."""
+    r2 = np.random.default_rng(1).uniform(0, 5, 1000)
+    return np.concatenate([r2, [0.0, 1.0, 0.25, 1e-31, 1e-40, 5e-324]])
+
+
+@pytest.mark.parametrize("delta", [1.0, 0.5, 1e3])
+def test_huber_plain_matches_pallas_and_jax(delta):
+    """rtol 1e-15: the same closed form, one rounding per operation on
+    both sides, against the Pallas kernel (interpret mode) and the JAX
+    GP's _huber_weight/_huber_cost."""
+    from glomap_tpu.estimators import global_positioning as jgp
+    r2 = _huber_r2()
+    w, c = kernels.huber_weight_cost(_t(r2), delta)
+    assert w.shape == c.shape == (len(r2),)
+    w_p, c_p = pk.huber_weight_cost(jnp.asarray(r2), delta=delta,
+                                    interpret=True)
+    for ref_w, ref_c in ((w_p, c_p),
+                         (jgp._huber_weight(jnp.asarray(r2), delta),
+                          jgp._huber_cost(jnp.asarray(r2), delta))):
+        np.testing.assert_allclose(w.numpy(), np.asarray(ref_w), rtol=1e-15,
+                                   atol=0)
+        np.testing.assert_allclose(c.numpy(), np.asarray(ref_c), rtol=1e-15,
+                                   atol=0)
+    inside = r2 <= delta * delta
+    assert inside[-6:].tolist() == [True, delta >= 1.0, delta >= 0.5,
+                                    True, True, True]
+    np.testing.assert_array_equal(w.numpy()[inside], 1.0)
+    np.testing.assert_array_equal(c.numpy()[inside], r2[inside])
+
+
+# ----------------------------------------------------------------------------
+# fused J * gather (B5)
+# ----------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("k,nr", [(6, 2), (3, 2), (16, 2), (22, 2), (28, 2),
+                                  (3, 3)],
+                         ids=["6x2", "3x2", "16x2", "ba-frame-sensor",
+                              "ba-rig", "gp-3x3"])
+def test_gather_dot_plain_matches_pallas(k, nr):
+    """tests/test_pallas_kernels.py::
+    test_sorted_segment_gather_dot_matches_composition's inputs (sorted
+    ids), and the path's shapes: BA's frame-sensor axis (k 22, 28 with
+    the rig columns) and points (k 3, nr 2), GP's frames and points (k 3,
+    nr 3). rtol 1e-9 (the JAX test's own)."""
+    rng = np.random.default_rng(12)
+    n, t, block = 3000, 250, 512
+    ids = _sorted_ids(rng, n, t)
+    width = pk.block_width_for_sorted(ids, block=block)
+    tab = rng.standard_normal((t, k))
+    U = rng.standard_normal((nr * k, n))
+    ref = np.asarray(pk.sorted_segment_gather_dot(
+        jnp.asarray(tab), jnp.asarray(ids), jnp.asarray(U), width,
+        block=block, interpret=True))
+    out = kernels.gather_dot(_t(tab), _t(U), SegmentAxis.build(_t(ids), t))
+    assert tuple(out.shape) == (nr, n)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.parametrize("k,nr", [(22, 2), (3, 3)],
+                         ids=["ba-frame-sensor", "gp-3x3"])
+def test_gather_dot_plain_unsorted_ids(k, nr):
+    """Unsorted ids with empty segments (the frame axis in observation
+    order): against the JAX package's axis ops off the windowed path
+    (make_axis_pair_ops' 4th element), rtol 1e-9."""
+    from glomap_tpu.ops.segment_ops import make_axis_pair_ops as jax_ops
+    rng = np.random.default_rng(13)
+    n, t = 2000, 40
+    ids = rng.integers(0, t - 5, n).astype(np.int32)  # segments 35-39 empty
+    tab = rng.standard_normal((t, k))
+    U = rng.standard_normal((nr * k, n))
+    gdot = jax_ops(jnp.asarray(ids), t, n, jnp.float64)[3]
+    ref = np.asarray(gdot(jnp.asarray(tab), jnp.asarray(U)))
+    out = kernels.gather_dot(_t(tab), _t(U), SegmentAxis.build(_t(ids), t))
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-9, atol=1e-9)
+    np.testing.assert_allclose(
+        out.numpy(), np.einsum("rko,ko->ro", U.reshape(nr, k, n),
+                               tab[ids].T), rtol=1e-12, atol=1e-12)

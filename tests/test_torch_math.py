@@ -21,6 +21,7 @@ from glomap_tpu_torch import config as tcfg
 from glomap_tpu_torch.estimators import bundle_adjustment as tba
 from glomap_tpu_torch.math import rotation as trot
 from glomap_tpu_torch.ops import camera_models as tcm
+from glomap_tpu_torch.ops import kernels as tkern
 from glomap_tpu_torch.ops import linear as tlin
 
 torch.set_num_threads(2)
@@ -172,13 +173,14 @@ def test_order_obs_for_locality_matches_jax_and_roundtrips():
 
 
 def test_huber_matches_jax():
+    """BA's Huber weight and cost, now B6 (kernels.huber_weight_cost,
+    its plain version on the CPU), against the JAX BA's own."""
     r2 = np.random.default_rng(1).uniform(0, 5, 1000)
     r2[:3] = [0.0, 1.0, 1e-40]
     for delta in (1.0, 0.5):
-        _close(tba._huber_weight(_t(r2), delta),
-               jba._huber_weight(jnp.asarray(r2), delta))
-        _close(tba._huber_cost(_t(r2), delta),
-               jba._huber_cost(jnp.asarray(r2), delta))
+        w, c = tkern.huber_weight_cost(_t(r2), delta)
+        _close(w, jba._huber_weight(jnp.asarray(r2), delta))
+        _close(c, jba._huber_cost(jnp.asarray(r2), delta))
 
 
 def test_bundle_adjuster_options_match_jax():
