@@ -19,7 +19,9 @@ Phases (each raises on failure; the exit code is then non-zero):
               bit for bit. Kernel, plain version and, where one PyTorch
               call computes the same function, that call (library_ms) are
               timed as CUDA graphs of repeated launches, so host launch
-              cost is excluded.
+              cost is excluded. B4 at each one-segment (camera) input, and
+              B3 on that axis, must give the camera segment the same bits
+              with a dummy segment in front of it (offset_invariance).
 3. slice   -- the launch counters are zeroed, _solve_ba runs 30 LM
               iterations with bench.py's settings, and the counters are
               read: every kernel must have launched. The cost must be
@@ -58,7 +60,8 @@ Phases (each raises on failure; the exit code is then non-zero):
               its early exit, then the deregistration). The scene's
               rotations are the generator's, as after rotation averaging.
               Every kernel input of one GP LM iteration and one BA LM
-              iteration is checked and timed like phase 2: B5
+              iteration is checked and timed like phase 2 (the offset
+              check included): B5
               (gather_dot) within the first-order bound of its k-term f32
               dot, B6 (huber_weight_cost) bit for bit against its plain
               f32 version and within its rounding bound of f64. Three GP LM
@@ -126,10 +129,11 @@ PROJ_R_ATOL = 2e-3
 PROJ_J_RTOL = 1e-5
 # reductions: the first-order worst-case bound of the kernel's own order
 #   of f32 operations, 2^-24 * depth * sum(|terms|) per output, where depth
-#   counts the roundings on one term's path: the product and the adds
-#   that form a pair row, the strided per-thread chain over the longest
-#   segment, and the 8-level block tree (see _sum_bound). Not a tuned
-#   number: a kernel inside it sums what the plain version sums.
+#   counts the roundings on one term's path: a lane's chain over its
+#   observations of a chunk (with B4's fused products), the 5-level lane
+#   butterfly, B4's warp-group adds and the adds of the chunk partials
+#   (see _sum_bound). Not a tuned number: a kernel inside it sums what the
+#   plain version sums.
 # gather: an exact copy, compared bit for bit.
 # sampson: every f32 operation of sampson.cu rounds once (relative error
 #   u = 2^-24 at most; no FMA contraction). First order, each point
@@ -198,7 +202,9 @@ GP_CENTER_BOUND = 0.15
 # 2.7e-4 of their largest magnitude; both sides are deterministic, so the
 # 1e-4 bound on the cost is met the same way on every run of this input.
 GP_COST_RTOL = 1e-4
-
+# the dummy segment of the offset check: a length that is no multiple of
+# 32 or of either chunk length, so every CSR entry behind it moves
+DUMMY_OBS = 1237
 
 
 def card_line() -> str:
@@ -352,10 +358,21 @@ def _plain(name, args):
 
 def _library(name, args):
     """One PyTorch call computing the same function, or None; for B5 the
-    pair index_select + einsum, timed together."""
+    pair index_select + einsum, timed together. For B4 on a one-segment
+    axis (the camera axis), the Gram U @ V.T (f32, TF32 off), whose
+    entries hold every output; on a many-segment axis no one call forms
+    per-segment pair sums without the (R, O) product rows, so None."""
     if name in ("sampson_score", "huber_weight_cost"):
         return None
     axis = args[-1]
+    if name == "pair_rowsum":
+        if axis.n_seg != 1:
+            return None
+        U, V = args[0], args[1]
+
+        def call():
+            return U @ V.T
+        return call
     if name == "gather_dot":
         tab, U, ids = args[0], args[1], axis.ids
         k = tab.shape[1]
@@ -388,20 +405,28 @@ def _f64(args):
 
 def _sum_bound(name, args):
     """Per output, 2^-24 * depth * sum(|terms|): the first-order bound on
-    the rounding of the kernel's f32 sum, plus that of the f64 reference."""
+    the rounding of the kernel's f32 sum, plus that of the f64 reference.
+    depth counts the roundings on one term's path in the kernels' order
+    (the headers of rowsum.cu and pair_rowsum.cu), at the longest segment:
+    a lane's chain over its observations of a chunk of L (one add each for
+    B3; T fused multiply-adds each for B4, whose WG warp groups split a
+    chunk by rows of 32), the 5 levels of the 32-lane butterfly, WG - 1
+    adds of the group partials, and nc - 1 adds of the chunk partials."""
     axis = args[-1]
     x = _f64(args)
     if name == "rowsum":
         abs_sum = kernels.rowsum_plain(x[0].abs(), axis.ids, axis.n_seg)
-        per_term = 0
+        L, per_obs, groups = kernels.ROWSUM_CHUNK, 1, 1
     else:
         abs_sum = kernels.pair_rowsum_plain(x[0].abs(), x[1].abs(), x[2],
                                             axis.ids, axis.n_seg)
-        per_term = max(len(t) for t in x[2])  # product + adds of a row
-    longest = int((axis.offsets[1:] - axis.offsets[:-1]).max())
-    chain = -(-longest // kernels._BLOCK)  # per-thread strided adds
-    tree = int(math.log2(kernels._BLOCK))  # warp shuffles, then warps
-    depth = per_term + chain + tree
+        n, m, per_obs = kernels.product_form(x[2], x[0].shape[0],
+                                             x[1].shape[0])[:3]
+        L, groups = kernels.PAIR_CHUNK, kernels.pair_tiles(n, m)[2]
+    rows32 = -(-min(axis.longest, L) // 32)  # rows of 32 in a chunk
+    chain = per_obs * -(-rows32 // groups)
+    chunks = max(1, -(-axis.longest // L))
+    depth = chain + 5 + (groups - 1) + (chunks - 1)
     return (2.0 ** -24 * depth + 2.0 ** -53 * axis.num_obs) * abs_sum
 
 
@@ -517,6 +542,42 @@ def check_case(name, args, gen) -> float:
         raise AssertionError(f"{name} {case_label(name, args)}: "
                              "integer-valued sums differ")
     return float(err.max())
+
+
+def offset_invariance(cases, gen) -> int:
+    """B4 at every recorded one-segment (camera) input, and B3 on the same
+    axis and rows (U), alone and with a dummy segment of DUMMY_OBS
+    observations in front: the camera's outputs must not change by a bit.
+    Returns the number of inputs checked."""
+    checked = 0
+    for (name, *_), (args, _) in cases.items():
+        if name != "pair_rowsum" or args[-1].n_seg != 1:
+            continue
+        U, V, pairs, axis = args
+        dev = U.device
+        shifted = kernels.SegmentAxis.build(torch.cat([
+            torch.zeros(DUMMY_OBS, dtype=torch.int32, device=dev),
+            axis.ids + 1]), 2)
+
+        def front(t):
+            return torch.cat([torch.randn((t.shape[0], DUMMY_OBS),
+                                          generator=gen).to(dev), t],
+                             dim=1).contiguous()
+        U2 = front(U)
+        V2 = U2 if V is U else front(V)
+        for alone, behind in (
+                (kernels.pair_rowsum(U, V, pairs, axis),
+                 kernels.pair_rowsum(U2, V2, pairs, shifted)),
+                (kernels.rowsum(U, axis), kernels.rowsum(U2, shifted))):
+            if not torch.equal(alone.view(torch.int32),
+                               behind[1:].view(torch.int32)):
+                raise AssertionError(
+                    f"{case_label(name, args)}: the camera segment's sums "
+                    "change behind a dummy segment")
+        checked += 1
+    if not checked:
+        raise AssertionError("no one-segment pair_rowsum input recorded")
+    return checked
 
 
 def projection_kinds_rig_args(args, gen):
@@ -990,6 +1051,7 @@ def stages_phase(scene, vg, dev, gen, peak_bw, peak_flops):
     ba_cases = record_cases(lambda: solve_bundle_adjustment(
         sc.copy(), tr.copy(), BundleAdjusterOptions(
             optimize_rotations=False, max_num_iterations=1), device=dev))
+    offset_checked = offset_invariance(ba_cases, gen)
     kernels.reset_launch_counts()
     rep6 = stage_6(sc, tr, dev)
     ba_launches = dict(kernels.LAUNCHES)
@@ -1040,6 +1102,7 @@ def stages_phase(scene, vg, dev, gen, peak_bw, peak_flops):
         "center_bound": GP_CENTER_BOUND,
         "gp_card_vs_cpu_f32_after_3": card_vs_cpu,
         "stage5_bitwise_reproducible": True,
+        "camera_segment_offset_invariant_cases": offset_checked,
         "peak_device_bytes": peak_bytes,
         "launches_stage5": gp_launches, "launches_stage6": ba_launches}
     return report, per_path, {"stage5_gp": gp_launches,
@@ -1086,6 +1149,7 @@ def main() -> int:
                        peak_bw, peak_flops, on_path=False)
     per_kernel["projection_resid_jac"][0].append(res)
     per_kernel["projection_resid_jac"][1].append(0)
+    offset_checked = offset_invariance(cases, gen)
     del cases
     # estimated device time of the four kernels in one LM iteration
     kernel_ms_per_iter = sum(c["ms"] * w for cs, ws in per_kernel.values()
@@ -1232,6 +1296,7 @@ def main() -> int:
         "cpu_f32_3_iters_s": t_cpu, "bitwise_reproducible": True,
         "entry_point_launches": entry_launches,
         "entry_point_vs_solve_ba": entry_diffs,
+        "camera_segment_offset_invariant_cases": offset_checked,
         "build_s": rep["seconds"], "card": card}}))
     print(json.dumps({"inlier_sweep": {
         "problem": (f"synthetic {SWEEP_OPTIONS}: {M} matches, {P} pairs, "

@@ -16,15 +16,19 @@ three parts:
 Layouts are the JAX package's: per-observation data as (k, O) row stacks
 with the observation axis contiguous, so a thread per observation reads
 and writes coalesced rows. Segment reductions read the CSR of their id
-axis (`SegmentAxis`: ids, a stable argsort `perm`, `offsets`), built once
-per solve; each segment is summed by one block in a fixed order, so the
-results are deterministic.
+axis (`SegmentAxis`: ids, a stable argsort `perm`, `offsets`) and its
+chunk plans, built once per solve: every segment is cut into chunks of a
+fixed number of CSR entries, a chunk is one warp's (B3) or one block's
+(B4) work item, and a segment's chunk partials are added in chunk order
+by its last chunk to finish, in the same launch. The order of every sum
+depends only on the segment's length and members, so the results are
+deterministic and do not change when other segments come or go.
 """
 
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
@@ -34,6 +38,10 @@ LAUNCHES = {"projection_resid_jac": 0, "gather": 0, "rowsum": 0,
             "pair_rowsum": 0, "gather_dot": 0, "huber": 0, "sampson": 0}
 # the z-normalisation offset and denominator clamp of the Sampson error
 SAMPSON_EPS = 1e-12
+# CSR entries per chunk: one warp's work item in rowsum.cu (four
+# observations a lane), one block's in pair_rowsum.cu
+ROWSUM_CHUNK = 128
+PAIR_CHUNK = 512
 
 
 def reset_launch_counts() -> None:
@@ -47,19 +55,68 @@ def reset_launch_counts() -> None:
 
 
 @dataclass(frozen=True)
+class ChunkPlan:
+    """Segment s of an axis in nc_s = max(1, ceil(len_s / length)) chunks:
+    chunk c holds CSR entries offsets[s] + c * length onward, at most
+    `length` of them (an empty segment has one empty chunk, which writes
+    its zeros). items (2, n_items) int32 lists (segment, chunk)
+    chunk-major (every segment's chunk 0, then every chunk 1, ...),
+    segments ascending within, so neighbouring work items read
+    neighbouring segments at the same offset; chunk_base (n_seg + 1,)
+    int32 gives each segment's first scratch slot, and chunk c of segment
+    s has slot chunk_base[s] + c."""
+    length: int
+    items: torch.Tensor
+    chunk_base: torch.Tensor
+
+    @property
+    def n_items(self) -> int:
+        """Chunks, and scratch slots: one each."""
+        return self.items.shape[1]
+
+    @staticmethod
+    def build(offsets: torch.Tensor, length: int) -> "ChunkPlan":
+        """The plan of a CSR `offsets` (n_seg + 1,); one host read."""
+        n_seg = offsets.shape[0] - 1
+        lens = (offsets[1:] - offsets[:-1]).long()
+        nc = torch.clamp((lens + length - 1) // length, min=1)
+        base = torch.zeros(n_seg + 1, dtype=torch.int64, device=offsets.device)
+        base[1:] = torch.cumsum(nc, 0)
+        total = int(base[-1])
+        seg = torch.repeat_interleave(
+            torch.arange(n_seg, device=offsets.device), nc, output_size=total)
+        chunk = torch.arange(total, device=offsets.device) - base[seg]
+        order = torch.argsort(chunk, stable=True)  # chunk-major
+        items = torch.stack([seg[order], chunk[order]]).to(torch.int32)
+        return ChunkPlan(int(length), items.contiguous(),
+                         base.to(torch.int32))
+
+
+@dataclass(frozen=True)
 class SegmentAxis:
-    """An observation -> segment id axis and its CSR.
+    """An observation -> segment id axis, its CSR and its chunk plans.
 
     ids (O,) int32; perm (O,) int32 orders the observations by id
-    (stable); offsets (n_seg + 1,) int32 delimit each segment in perm."""
+    (stable); offsets (n_seg + 1,) int32 delimit each segment in perm.
+    The CUDA reductions also read rowsum_plan and pair_plan (chunks of
+    ROWSUM_CHUNK and PAIR_CHUNK entries), the per-segment arrival
+    counters (n_seg,) int32, zeroed here and left at zero by every call,
+    and scratch for chunk partials, allocated at first use per width.
+    `longest` is the largest segment's length."""
     ids: torch.Tensor
     perm: torch.Tensor
     offsets: torch.Tensor
     n_seg: int
+    rowsum_plan: ChunkPlan | None = None
+    pair_plan: ChunkPlan | None = None
+    counters: torch.Tensor | None = None
+    longest: int = 0
+    scratch: dict = field(default_factory=dict, compare=False, repr=False)
 
     @staticmethod
     def build(ids: torch.Tensor, n_seg: int) -> "SegmentAxis":
-        """Validate ids once (one host read) and build the CSR."""
+        """Validate ids and build the CSR and the chunk plans (five host
+        reads, once per axis)."""
         if ids.dim() != 1:
             raise ValueError(f"ids must be 1-D, got shape {tuple(ids.shape)}")
         ids32 = ids.to(torch.int32).contiguous()
@@ -68,16 +125,34 @@ class SegmentAxis:
             if int(lo) < 0 or int(hi) >= n_seg:
                 raise ValueError(f"ids out of range [0, {n_seg}): "
                                  f"[{int(lo)}, {int(hi)}]")
-        perm = torch.argsort(ids32, stable=True).to(torch.int32)
         counts = torch.bincount(ids32.long(), minlength=n_seg)
+        longest = int(counts.max()) if ids32.numel() else 0
+        perm = torch.argsort(ids32, stable=True).to(torch.int32)
         offsets = torch.zeros(n_seg + 1, dtype=torch.int64, device=ids.device)
         offsets[1:] = torch.cumsum(counts, 0)
-        return SegmentAxis(ids32, perm.contiguous(),
-                           offsets.to(torch.int32), int(n_seg))
+        offsets = offsets.to(torch.int32)
+        return SegmentAxis(
+            ids32, perm.contiguous(), offsets, int(n_seg),
+            ChunkPlan.build(offsets, ROWSUM_CHUNK),
+            ChunkPlan.build(offsets, PAIR_CHUNK),
+            torch.zeros(n_seg, dtype=torch.int32, device=ids.device),
+            int(longest))
 
     @property
     def num_obs(self) -> int:
         return self.ids.shape[0]
+
+    def scratch_for(self, plan: ChunkPlan, width: int) -> torch.Tensor:
+        """(n_items * width,) f32 for the chunk partials of `plan`, kept
+        with the axis: calls on one axis are ordered on their stream, and
+        every slot a call reads it has written first."""
+        key = (plan.length, width)
+        buf = self.scratch.get(key)
+        if buf is None:
+            buf = torch.empty(max(plan.n_items * width, 1),
+                              dtype=torch.float32, device=self.ids.device)
+            self.scratch[key] = buf
+        return buf
 
 
 # ----------------------------------------------------------------------------
@@ -378,18 +453,20 @@ _SIGNATURES = {
     "projection": ("glomap_projection_resid_jac",
                    [_P] * 10 + [_I, _P]),
     "gather": ("glomap_gather", [_P, _P, _P, _I, _I, _I, _P]),
-    "rowsum": ("glomap_rowsum", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    "pair_rowsum": ("glomap_pair_rowsum", [_P] * 6 + [_I] * 5 + [_P]),
+    "rowsum": ("glomap_rowsum", [_P] * 8 + [_I] * 4 + [_P]),
+    "pair_rowsum": ("glomap_pair_rowsum", [_P] * 9 + [_I] * 15 + [_P]),
     "gather_dot": ("glomap_gather_dot", [_P] * 4 + [_I] * 4 + [_P]),
     "huber": ("glomap_huber", [_P] * 3 + [ctypes.c_float] * 3 + [_I, _P]),
     "sampson": ("glomap_sampson", [_P] * 4 + [_I, _P]),
 }
 _entries: dict = {}
-# segment reductions: threads per block and most output columns per block
-_BLOCK = 256
-_MAX_COLS = 8
-# blocks wanted in flight (4 per SM of an H100 SXM)
-_TARGET_BLOCKS = 528
+# pair_rowsum.cu: its ring of PAIR_STAGES staged sub-tiles of U and V rows
+# (kStages there) fills PAIR_STAGE_BYTES of shared memory, which sets the
+# sub-tile length from the rows alone; and the most output tiles a block
+# holds (one per warp)
+PAIR_STAGES = 3
+PAIR_STAGE_BYTES = 48 << 10
+PAIR_MAX_TILES = 8
 
 
 def _entry(name: str):
@@ -434,17 +511,19 @@ def _check_axis(axis: SegmentAxis, num_obs: int,
             raise ValueError(f"axis.{name}: need contiguous int32 on {device}")
     if axis.num_obs != num_obs:
         raise ValueError(f"axis has {axis.num_obs} ids, rows have {num_obs}")
+    for plan in (axis.rowsum_plan, axis.pair_plan):
+        if plan is None or plan.items.device != device \
+                or plan.chunk_base.device != device:
+            raise ValueError(f"axis: needs its chunk plans on {device} "
+                             "(SegmentAxis.build)")
+    if axis.counters is None or axis.counters.device != device:
+        raise ValueError(f"axis: needs its counters on {device}")
 
 
 def _raise_on(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {rc}")
-
-
-def _cols_per_block(n_seg: int, R: int) -> int:
-    """Output columns per block: enough blocks for the card, at most 8."""
-    return max(1, min(_MAX_COLS, R, (n_seg * R) // _TARGET_BLOCKS))
 
 
 def _projection_resid_jac_cuda(M, S, bt, X, uv, intr, kind, ts=None):
@@ -492,37 +571,90 @@ def _rowsum_cuda(vals: torch.Tensor, axis: SegmentAxis) -> torch.Tensor:
     k = vals.shape[0] if vals.dim() == 2 else -1
     _check_rows("rowsum vals", vals, k, axis.num_obs, dev)
     _check_axis(axis, axis.num_obs, dev)
+    plan = axis.rowsum_plan
     out = torch.empty((axis.n_seg, k), dtype=torch.float32, device=dev)
+    scratch = axis.scratch_for(plan, k)
     rc = fn(vals.data_ptr(), axis.perm.data_ptr(), axis.offsets.data_ptr(),
-            out.data_ptr(), k, axis.num_obs, axis.n_seg,
-            _cols_per_block(axis.n_seg, k), _stream(dev))
+            plan.items.data_ptr(), plan.chunk_base.data_ptr(),
+            axis.counters.data_ptr(), scratch.data_ptr(), out.data_ptr(), k,
+            axis.num_obs, plan.n_items, plan.length, _stream(dev))
     _raise_on(rc, "rowsum")
     LAUNCHES["rowsum"] += 1
     return out
 
 
-_term_tables: dict = {}
+_forms: dict = {}
 
 
-def term_table(pairs, ku: int, kv: int, device) -> torch.Tensor:
-    """int32 [offsets (R+1) | a (T) | b (T)] encoding of `pairs`, cached
-    per (pairs, device); row indices are checked against U and V."""
-    key = (pairs, str(device))
-    tab = _term_tables.get(key)
-    if tab is None:
-        offsets, a_idx, b_idx = [0], [], []
-        for terms in pairs:
-            for a, b in terms:
-                if not (0 <= a < ku and 0 <= b < kv):
-                    raise ValueError(f"pair ({a}, {b}) out of range for "
-                                     f"U rows {ku}, V rows {kv}")
-                a_idx.append(a)
-                b_idx.append(b)
-            offsets.append(len(a_idx))
-        tab = torch.tensor(offsets + a_idx + b_idx, dtype=torch.int32,
-                           device=device)
-        _term_tables[key] = tab
-    return tab
+def product_form(pairs, ku: int, kv: int) -> tuple:
+    """(n, m, T, a0, sa_i, sa_t, b0, sb_j, sb_t) such that
+      pairs[i*m + j] == ((a0 + i*sa_i + t*sa_t, b0 + j*sb_j + t*sb_t)
+                         for t < T)
+    for every i < n, j < m: the (n x m) block of T rank-1 terms that
+    pair_rowsum.cu takes, cached per (pairs, ku, kv). Every table of the
+    BA solver has this form: J^T y (m = 1), the Grams and the Schur
+    corrections. Raises ValueError for a table of another shape, for a row
+    index outside U (ku rows) or V (kv rows), and for a block of more
+    output tiles than the kernel's warps."""
+    key = (pairs, ku, kv)
+    form = _forms.get(key)
+    if form is not None:
+        return form
+    table = tuple(tuple(tuple(p) for p in terms) for terms in pairs)
+    R = len(table)
+    if R == 0 or not table[0]:
+        raise ValueError("pair_rowsum: empty pairs")
+    T = len(table[0])
+    (a0, b0), a_rows = table[0][0], [[p[0] for p in t] for t in table]
+    m = 1
+    while m < R and a_rows[m] == a_rows[0]:
+        m += 1
+    n = R // m
+    sa_t, sb_t = (table[0][1][0] - a0, table[0][1][1] - b0) if T > 1 \
+        else (0, 0)
+    sa_i = table[m][0][0] - a0 if n > 1 else 0
+    sb_j = table[1][0][1] - b0 if m > 1 else 0
+    expect = tuple(tuple((a0 + i * sa_i + t * sa_t, b0 + j * sb_j + t * sb_t)
+                         for t in range(T))
+                   for i in range(n) for j in range(m))
+    if expect != table:
+        raise ValueError("pair_rowsum: the CUDA kernel takes pairs of the "
+                         "form out[i*m + j] = sum_t U[a0 + i*sa_i + t*sa_t] "
+                         "* V[b0 + j*sb_j + t*sb_t]")
+    for terms in table:
+        for a, b in terms:
+            if not (0 <= a < ku and 0 <= b < kv):
+                raise ValueError(f"pair ({a}, {b}) out of range for U rows "
+                                 f"{ku}, V rows {kv}")
+    ti, tj, groups = pair_tiles(n, m)
+    if not groups:
+        raise ValueError(f"pair_rowsum: a {n} x {m} block is more than "
+                         f"{PAIR_MAX_TILES} tiles of {ti} x {tj}")
+    form = (n, m, T, a0, sa_i, sa_t, b0, sb_j, sb_t)
+    _forms[key] = form
+    return form
+
+
+def pair_tiles(n: int, m: int) -> tuple:
+    """(TI, TJ, WG): pair_rowsum.cu's warp tile of an n x m block (16 x 1
+    for J^T y, else 4 x 8) and the warps that share each tile, splitting
+    the chunk by rows of 32 observations; WG is 0 when the block needs
+    more tiles than the kernel has warps."""
+    ti, tj = (16, 1) if m == 1 else (4, 8)
+    return ti, tj, PAIR_MAX_TILES // (-(-n // ti) * -(-m // tj))
+
+
+def pair_stage_len(rows: int, longest: int) -> int:
+    """Observations per staged sub-tile of pair_rowsum.cu: the largest
+    power of two whose PAIR_STAGES buffers of `rows` rows fit
+    PAIR_STAGE_BYTES, within [32, PAIR_CHUNK] and no longer than the
+    longest segment needs. It sets only how a chunk is staged, never the
+    order of a sum."""
+    need = max(32, min(longest, PAIR_CHUNK))
+    s = 32
+    while s < need and PAIR_STAGES * rows * (2 * s) * 4 <= PAIR_STAGE_BYTES:
+        s *= 2
+    return s
 
 
 def _pair_rowsum_cuda(U, V, pairs, axis: SegmentAxis) -> torch.Tensor:
@@ -534,13 +666,19 @@ def _pair_rowsum_cuda(U, V, pairs, axis: SegmentAxis) -> torch.Tensor:
     _check_rows("pair_rowsum U", U, ku, O, dev)
     _check_rows("pair_rowsum V", V, kv, O, dev)
     _check_axis(axis, O, dev)
-    R = len(pairs)
-    terms = term_table(pairs, ku, kv, dev)
-    out = torch.empty((axis.n_seg, R), dtype=torch.float32, device=dev)
-    rc = fn(U.data_ptr(), V.data_ptr(), terms.data_ptr(),
-            axis.perm.data_ptr(), axis.offsets.data_ptr(), out.data_ptr(),
-            R, (terms.shape[0] - (R + 1)) // 2, O, axis.n_seg,
-            _cols_per_block(axis.n_seg, R), _stream(dev))
+    n, m, T, a0, sa_i, sa_t, b0, sb_j, sb_t = product_form(pairs, ku, kv)
+    same = U.data_ptr() == V.data_ptr() and ku == kv  # stage one read
+    rows = ku if same else ku + kv
+    plan = axis.pair_plan
+    out = torch.empty((axis.n_seg, n * m), dtype=torch.float32, device=dev)
+    scratch = axis.scratch_for(plan, n * m)
+    lg_s = pair_stage_len(rows, axis.longest).bit_length() - 1
+    rc = fn(U.data_ptr(), V.data_ptr(), axis.perm.data_ptr(),
+            axis.offsets.data_ptr(), plan.items.data_ptr(),
+            plan.chunk_base.data_ptr(), axis.counters.data_ptr(),
+            scratch.data_ptr(), out.data_ptr(), n, m, T, a0, sa_i, sa_t,
+            b0 + (0 if same else ku), sb_j, sb_t, ku, rows, O, plan.n_items,
+            plan.length, lg_s, _stream(dev))
     _raise_on(rc, "pair_rowsum")
     LAUNCHES["pair_rowsum"] += 1
     return out

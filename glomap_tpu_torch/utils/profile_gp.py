@@ -56,7 +56,9 @@ def gp_problem(device):
 
 
 def _ours(name: str):
-    return next((k for k in OUR_KERNELS if f"::{k}(" in name), None)
+    """The port's kernel behind device name `name`, templates included."""
+    return next((k for k in OUR_KERNELS
+                 if f"::{k}(" in name or f"::{k}<" in name), None)
 
 
 def profile(runs: int = 2) -> dict:

@@ -67,8 +67,10 @@ def sweep_problem(options=SWEEP_OPTIONS):
 
 def _ours(name: str):
     """The port's kernel behind device name `name` ("(anonymous
-    namespace)::gather_kernel(...)"), or None."""
-    return next((k for k in OUR_KERNELS if f"::{k}(" in name), None)
+    namespace)::gather_kernel(...)", or "...::rowsum_kernel<32>(...)" for
+    a template), or None."""
+    return next((k for k in OUR_KERNELS
+                 if f"::{k}(" in name or f"::{k}<" in name), None)
 
 
 def profile(runs: int = 3, window: int = 2) -> dict:

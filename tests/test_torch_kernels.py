@@ -277,17 +277,49 @@ def test_segment_axis_rejects_out_of_range_ids():
 
 
 def test_term_table_encodes_pairs():
+    """The CUDA kernel takes `pairs` as its product form (the term table
+    of earlier versions): it must give back every term of the triple-term
+    table, and reject a row outside U or V."""
     pairs = PAIR_CASES[2][2]
-    tab = kernels.term_table(pairs, 9, 9, "cpu").tolist()
-    R = len(pairs)
-    offsets, rest = tab[:R + 1], tab[R + 1:]
-    a_idx, b_idx = rest[:len(rest) // 2], rest[len(rest) // 2:]
-    got = tuple(tuple(zip(a_idx[offsets[r]:offsets[r + 1]],
-                          b_idx[offsets[r]:offsets[r + 1]]))
-                for r in range(R))
+    n, m, T, a0, sa_i, sa_t, b0, sb_j, sb_t = kernels.product_form(pairs, 9,
+                                                                    9)
+    got = tuple(tuple((a0 + i * sa_i + t * sa_t, b0 + j * sb_j + t * sb_t)
+                      for t in range(T))
+                for i in range(n) for j in range(m))
     assert got == pairs
     with pytest.raises(ValueError, match="out of range"):
-        kernels.term_table(((( 0, 9),),), 9, 9, "cpu")
+        kernels.product_form((((0, 9),),), 9, 9)
+
+
+@pytest.mark.parametrize("ku,kv,pairs,form", [
+    (12, 2, tba._jt_pairs(6), (6, 1, 2, 0, 1, 6, 0, 0, 1)),
+    (32, 2, tba._jt_pairs(16), (16, 1, 2, 0, 1, 16, 0, 0, 1)),
+    (6, 6, tba._gram_pairs(3, 3), (3, 3, 2, 0, 1, 3, 0, 1, 3)),
+    (32, 32, tba._gram_pairs(16, 16), (16, 16, 2, 0, 1, 16, 0, 1, 16)),
+    (18, 18, tba._corr_pairs(6), (6, 6, 3, 0, 3, 1, 0, 3, 1)),
+    (48, 48, tba._corr_pairs(16), (16, 16, 3, 0, 3, 1, 0, 3, 1)),
+] + [(ku, kv, p, None) for ku, kv, p in PAIR_CASES],
+    ids=["jt6", "jt16", "gram3", "gram16", "corr6", "corr16", "jt",
+         "gram", "schur-corr"])
+def test_product_form_of_pairs(ku, kv, pairs, form):
+    """The (n x m, T terms) form pair_rowsum.cu takes reproduces the
+    table term for term, for every table of the BA solver."""
+    got = kernels.product_form(pairs, ku, kv)
+    if form is not None:
+        assert got == form
+    n, m, T, a0, sa_i, sa_t, b0, sb_j, sb_t = got
+    assert tuple(tuple((a0 + i * sa_i + t * sa_t, b0 + j * sb_j + t * sb_t)
+                       for t in range(T))
+                 for i in range(n) for j in range(m)) == pairs
+
+
+def test_product_form_rejects_other_tables():
+    with pytest.raises(ValueError, match="out of range"):
+        kernels.product_form((((0, 9),),), 9, 9)
+    with pytest.raises(ValueError, match="form"):
+        kernels.product_form((((0, 0),), ((1, 1),)), 2, 2)  # a diagonal
+    with pytest.raises(ValueError, match="tiles"):  # 24 x 24 outputs
+        kernels.product_form(tba._gram_pairs(24, 24), 48, 48)
 
 
 # ----------------------------------------------------------------------------
