@@ -22,6 +22,9 @@ Phases (each raises on failure; the exit code is then non-zero):
               cost is excluded. B4 at each one-segment (camera) input, and
               B3 on that axis, must give the camera segment the same bits
               with a dummy segment in front of it (offset_invariance).
+              B2 also runs its own inputs (gather_extra_cases: every
+              O % 4, and a 53-column table larger than shared memory
+              under unsorted ids), each bit for bit its plain version.
 3. slice   -- the launch counters are zeroed, _solve_ba runs 30 LM
               iterations with bench.py's settings, and the counters are
               read: every kernel must have launched. The cost must be
@@ -63,10 +66,13 @@ Phases (each raises on failure; the exit code is then non-zero):
               iteration is checked and timed like phase 2 (the offset
               check included): B5
               (gather_dot) within the first-order bound of its k-term f32
-              dot, B6 (huber_weight_cost) bit for bit against its plain
-              f32 version and within its rounding bound of f64. Three GP LM
+              dot, B6 (huber_irls, the fused IRLS step) bit for bit
+              against its plain f32 version and within its rounding bound
+              of f64. Three GP LM
               iterations on the card must match the CPU's plain f32 path
-              (cost to 1e-4 relative). Stage 5 runs twice and must agree
+              (cost to 1e-4 relative), and GP's cost at its initial state
+              an f64 evaluation within a bound derived from its order of
+              operations (gp_cost_at_start). Stage 5 runs twice and must agree
               bit for bit; counters zeroed before stage 5 must show B2,
               B3, B5 and B6, and before stage 6 B1-B6. After stage 5 and
               after stage 6 the registered frame centers, Sim3-aligned to
@@ -169,25 +175,26 @@ REPLACES = {
                     "glomap_tpu/ops/pallas_kernels.py:762"),
     "gather_dot": ("glomap_tpu_torch/csrc/gather_dot.cu",
                    "glomap_tpu/ops/pallas_kernels.py:849"),
-    "huber_weight_cost": ("glomap_tpu_torch/csrc/huber.cu",
-                          "glomap_tpu/ops/pallas_kernels.py:904"),
+    "huber_irls": ("glomap_tpu_torch/csrc/huber.cu",
+                   "glomap_tpu/ops/pallas_kernels.py:904"),
     "sampson_score": ("glomap_tpu_torch/csrc/sampson.cu",
                       "glomap_tpu/ops/pallas_kernels.py:949"),
 }
 # wrapper name -> its counter in kernels.LAUNCHES
-COUNTER = {"sampson_score": "sampson", "huber_weight_cost": "huber"}
+COUNTER = {"sampson_score": "sampson", "huber_irls": "huber"}
 # the kernels each path must launch
 BA_KERNELS = ("projection_resid_jac", "gather", "rowsum", "pair_rowsum",
-              "gather_dot", "huber_weight_cost")
+              "gather_dot", "huber_irls")
 SWEEP_KERNELS = ("gather", "rowsum", "sampson_score")
-GP_KERNELS = ("gather", "rowsum", "gather_dot", "huber_weight_cost")
+GP_KERNELS = ("gather", "rowsum", "gather_dot", "huber_irls")
 # f32 operations per observation of the projection kernel, counted from
 # projection.cu (all kinds' base maps are evaluated, then selected)
 PROJ_OPS = {25: 420, 31: 520}
 # f32 operations per match of the Sampson kernel, counted from sampson.cu
 SAMPSON_OPS = 40
-# per element of the Huber kernel: clamp, sqrt, compare, division,
-# product, difference (huber.cu)
+# per observation of the Huber kernel beside its k squares, k - 1 adds and
+# the two weight products: clamp, sqrt, compare, division, product,
+# difference (huber.cu)
 HUBER_OPS = 6
 # GlobalMapperOptions.num_iteration_bundle_adjustment
 NUM_BA_ROUNDS = 3
@@ -196,11 +203,15 @@ NUM_BA_ROUNDS = 3
 # after Sim3 alignment on a ring of radius 5
 GP_CENTER_BOUND = 0.15
 # card vs the CPU's plain f32 path after CPU_ITERS GP LM iterations, from
-# the random [-100, 100]^3 init: the reduction orders differ (CSR blocks
-# against index_add_) and the CG carries the rounding on. Measured on an
-# H100 (700 W): the cost 6.4e-5 relative, the centers 7.3e-4 and points
-# 2.7e-4 of their largest magnitude; both sides are deterministic, so the
-# 1e-4 bound on the cost is met the same way on every run of this input.
+# the random [-100, 100]^3 init: the reduction orders differ (the kernels'
+# chunked CSR sums against index_add_) and the CG carries the rounding on.
+# Measured on an H100 80GB HBM3 (700 W): the cost 8.6e-5 relative with
+# the split-segment row sums (6.4e-5 before them), and the same 8.6e-5,
+# bit for bit, with the fused Huber step, whose squares add in the order
+# the card's torch.sum took; both sides are deterministic, so the 1e-4
+# bound on the cost is met the same way on every run of this input. A measured bound, not a derived one: beside it,
+# gp_cost_at_start holds the cost at the shared initial state, before any
+# CG iteration, within a bound derived from its order of operations.
 GP_COST_RTOL = 1e-4
 # the dummy segment of the offset check: a length that is no multiple of
 # 32 or of either chunk length, so every CSR entry behind it moves
@@ -295,8 +306,8 @@ def sampson_bound(E9, x1T, x2T):
 def _key(name, args):
     if name == "projection_resid_jac":
         return (name, args[7] is not None)
-    if name == "huber_weight_cost":
-        return (name, args[0].shape[0], args[1])
+    if name == "huber_irls":
+        return (name, tuple(args[0].shape), args[1], args[2] is not None)
     axis = args[-1]
     if name == "pair_rowsum":
         return (name, id(axis), args[2])
@@ -316,6 +327,8 @@ def record_cases(run) -> dict:
         def recorded(*args):
             if name == "projection_resid_jac" and len(args) == 7:
                 args = args + (None,)  # the cost evaluation's call
+            if name == "huber_irls" and len(args) == 2:
+                args = args + (None,)  # no weight
             # each Sampson call is a case of its own: E on rays, F on
             # pixels, per chunk
             k = (name, sum(c[0] == name for c in cases)) \
@@ -344,8 +357,8 @@ def _plain(name, args):
         return kernels.projection_resid_jac_plain(*args)
     if name == "sampson_score":
         return kernels.sampson_score_plain(*args)
-    if name == "huber_weight_cost":
-        return kernels.huber_weight_cost_plain(*args)
+    if name == "huber_irls":
+        return kernels.huber_irls_plain(*args)
     axis = args[-1]
     if name == "gather":
         return kernels.gather_plain(args[0], axis.ids)
@@ -362,7 +375,7 @@ def _library(name, args):
     axis (the camera axis), the Gram U @ V.T (f32, TF32 off), whose
     entries hold every output; on a many-segment axis no one call forms
     per-segment pair sums without the (R, O) product rows, so None."""
-    if name in ("sampson_score", "huber_weight_cost"):
+    if name in ("sampson_score", "huber_irls"):
         return None
     axis = args[-1]
     if name == "pair_rowsum":
@@ -430,31 +443,65 @@ def _sum_bound(name, args):
     return (2.0 ** -24 * depth + 2.0 ** -53 * axis.num_obs) * abs_sum
 
 
-def huber_reference(r2, delta):
-    """(w, c, bound_w, bound_c): B6's weight and cost in f64 of the f32
-    inputs with the kernel's f32 constants (delta, delta^2, 2 delta and the
-    1e-30 clamp as f32 values), and the first-order bound on the kernel's
-    own roundings, each at most u = 2^-24 relative: w = d / sqrt(x) takes
-    the square root's and the division's, 2u |w|; c = 2d sqrt(x) - d^2 the
-    square root's and the product's on 2d sqrt(x), and the difference's on
-    |c|, 2u 2d sqrt(x) + u |c|. Inside delta both outputs are exact (1 and
-    x), and the kernel and the reference take the same branch, comparing
-    the same f32 x with the same f32 delta^2. Not a tuned number."""
-    u = 2.0 ** -24
+def _f32(v) -> float:
+    return float(np.float32(v))
 
-    def f32(v):
-        return float(np.float32(v))
-    d, d2, two_d = f32(delta), f32(delta * delta), f32(2.0 * delta)
-    x = r2.double()
-    rn = torch.sqrt(torch.clamp(x, min=f32(1e-30)))
+
+def huber_bounds(x, bx, delta, f32_constants=True):
+    """(w, c, bound_w, bound_c) of Huber's weight and cost at the f64
+    values x >= 0 whose f32 counterparts the kernel holds within bx (first
+    order), with the kernel's f32 constants (delta, delta^2, 2 delta and
+    the 1e-30 clamp as f32 values). The bound takes the kernel's own
+    roundings at x (each at most u = 2^-24 relative: w = d / sqrt(x) the
+    square root's and the division's, 2u |w|; c = 2d sqrt(x) - d^2 the
+    square root's and the product's on 2d sqrt(x), and the difference's on
+    |c|) and what x's error carries: over [x - bx, x + bx], c moves by at
+    most max(1, 2d / (2 sqrt(x - bx))) bx and w by d / (2 (x - bx)^1.5) bx
+    outside delta, plus the step of each output at the branch (the f32
+    constants make it |2d sqrt(d^2) - 2 d^2| and |d / sqrt(d^2) - 1|)
+    where the interval holds delta^2. Inside delta with margin both
+    outputs are exact (1 and x). Not a tuned number. With f32_constants
+    False the outputs take the f64 constants of an f64 solve."""
+    u = 2.0 ** -24
+    d, d2, two_d = (_f32(delta), _f32(delta * delta), _f32(2.0 * delta)) \
+        if f32_constants else (delta, delta * delta, 2.0 * delta)
+    rn = torch.sqrt(torch.clamp(x, min=_f32(1e-30)))
     inside = x <= d2
     zero = torch.zeros_like(x)
     w = torch.where(inside, torch.ones_like(x), d / rn)
     c = torch.where(inside, x, two_d * rn - d2)
+    lo = torch.clamp(x - bx, min=_f32(1e-30))
+    out_part = x + bx > d2  # some of the interval lies outside delta
+    edge = (x - bx <= d2) & out_part
+    lc = torch.where(out_part, torch.clamp(two_d / (2 * lo.sqrt()), min=1.0),
+                     torch.ones_like(x))
+    lw = torch.where(out_part, d / (2 * lo ** 1.5), zero)
+    step_c = abs(two_d * math.sqrt(d2) - 2 * d2)
+    step_w = abs(d / math.sqrt(d2) - 1.0)
     # plus the f64 reference's own few roundings
-    bw = torch.where(inside, zero, (2 * u + 2.0 ** -50) * w)
+    bw = torch.where(inside, zero, (2 * u + 2.0 ** -50) * w) + lw * bx \
+        + torch.where(edge, step_w, zero)
     bc = torch.where(inside, zero, (2 * u + 2.0 ** -50) * two_d * rn
-                     + (u + 2.0 ** -50) * c.abs())
+                     + (u + 2.0 ** -50) * c.abs()) + lc * bx \
+        + torch.where(edge, step_c, zero)
+    return w, c, bw, bc
+
+
+def huber_reference(r, delta, weight=None):
+    """(w, c, bound_w, bound_c): B6's outputs in f64 of the f32 inputs
+    and the first-order bound on the kernel's own roundings. The kernel
+    adds the k squares in row order, each product and add rounded once:
+    the sum of non-negative terms carries at most k u x (x = |r|^2, u =
+    2^-24); Huber's step then as huber_bounds; the weight product adds
+    u |o_w w| and u |o_w c|. Not a tuned number."""
+    u = 2.0 ** -24
+    k = r.shape[0]
+    x = (r.double() ** 2).sum(0)
+    w, c, bw, bc = huber_bounds(x, (k * u + 2.0 ** -50) * x, delta)
+    if weight is not None:
+        W = weight.double()
+        w, c, bw, bc = (W * w, W * c, W * bw + (u + 2.0 ** -50) * (W * w).abs(),
+                        W * bc + (u + 2.0 ** -50) * (W * c).abs())
     return w, c, bw, bc
 
 
@@ -467,6 +514,11 @@ def _dot_bound(args):
     k = tab.shape[1]
     return (2.0 ** -24 + 2.0 ** -53) * k * kernels.gather_dot_plain(
         tab.abs(), U.abs(), axis.ids)
+
+
+def _same_bits(a, b) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
 
 
 def _integer_args(name, args, gen):
@@ -486,16 +538,16 @@ def check_case(name, args, gen) -> float:
     same inputs; raises outside the stated tolerance. Returns the largest
     absolute difference."""
     got = getattr(kernels, name)(*args)
-    if name == "huber_weight_cost":
+    if name == "huber_irls":
         plain = _plain(name, args)  # f32, on the card
-        if not (torch.equal(got[0], plain[0])
-                and torch.equal(got[1], plain[1])):
-            raise AssertionError(f"{name}: not bit for bit the plain f32 "
-                                 "version")
+        if not all(_same_bits(a, b) for a, b in zip(got, plain)):
+            raise AssertionError(f"{name} {case_label(name, args)}: not bit "
+                                 "for bit the plain f32 version")
         w, c, bw, bc = huber_reference(*args)
         err_w, err_c = (got[0].double() - w).abs(), (got[1].double() - c).abs()
         if bool((err_w > bw).any()) or bool((err_c > bc).any()):
-            raise AssertionError(f"{name}: error {float(err_w.max())}, "
+            raise AssertionError(f"{name} {case_label(name, args)}: error "
+                                 f"{float(err_w.max())}, "
                                  f"{float(err_c.max())} above the rounding "
                                  "bound")
         return max(float(err_w.max()), float(err_c.max()))
@@ -530,8 +582,10 @@ def check_case(name, args, gen) -> float:
                                  "Jacobian entries outside the bound")
         return max(err_r, float(err_J.max()))
     if name == "gather":
-        if not torch.equal(got.double(), want):
-            raise AssertionError("gather: not an exact copy")
+        if not (_same_bits(got, _plain(name, args))
+                and torch.equal(got.double(), want)):
+            raise AssertionError(f"gather {case_label(name, args)}: not an "
+                                 "exact copy")
         return 0.0
     err = (got.double() - want).abs()
     if bool((err > _sum_bound(name, args)).any()):
@@ -580,6 +634,28 @@ def offset_invariance(cases, gen) -> int:
     return checked
 
 
+def gather_extra_cases(cases, gen) -> list:
+    """B2's own inputs beside the main path's: BA's frame-sensor (staged
+    whole, k 24) and point (read in place, k 3) gathers cut to every other
+    O % 4, so that the output rows start off a 16-byte boundary, and a
+    table of 4,950 rows of 53 columns (1 MB, more than a block's shared
+    memory holds) read in place through 1,000,001 unsorted ids."""
+    extra = []
+    for (name, *_), (args, _) in cases.items():
+        tab, axis = args if name == "gather" else (None, None)
+        if tab is None or tab.shape[1] not in (24, 3) or axis.n_seg == 1:
+            continue
+        for cut in (1, 2, 3):
+            extra.append((tab, kernels.SegmentAxis.build(
+                axis.ids[:axis.num_obs - cut], axis.n_seg)))
+    dev = extra[0][0].device
+    T = 4950
+    ids = torch.randint(0, T, (1_000_001,), generator=gen).to(dev)
+    extra.append((torch.randn((T, 53), generator=gen).to(dev),
+                  kernels.SegmentAxis.build(ids, T)))
+    return extra
+
+
 def projection_kinds_rig_args(args, gen):
     """The main path's projection inputs with every camera kind, full
     distortion and the rig columns (zdim 31): off the bench's path, but
@@ -604,9 +680,10 @@ def case_work(name, args):
     if name == "sampson_score":
         M = args[0].shape[1]
         return f * 16 * M, SAMPSON_OPS * M
-    if name == "huber_weight_cost":
-        O = args[0].shape[0]
-        return f * 3 * O, HUBER_OPS * O
+    if name == "huber_irls":
+        (k, O), weighted = args[0].shape, args[2] is not None
+        return (f * (k + weighted + 2) * O,
+                (2 * k - 1 + HUBER_OPS + 2 * weighted) * O)
     if name == "projection_resid_jac":
         O = args[0].shape[1]
         zdim = 25 if args[7] is None else 31
@@ -653,8 +730,9 @@ def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
 def case_label(name, args):
     if name == "sampson_score":
         return f"M={args[0].shape[1]}"
-    if name == "huber_weight_cost":
-        return f"O={args[0].shape[0]} delta={args[1]}"
+    if name == "huber_irls":
+        return (f"k={args[0].shape[0]} O={args[0].shape[1]} "
+                f"delta={args[1]} weight={args[2] is not None}")
     if name == "projection_resid_jac":
         return f"zdim={25 if args[7] is None else 31} O={args[0].shape[1]}"
     axis = args[-1]
@@ -987,6 +1065,107 @@ def capture_gp_args(run) -> tuple:
     return captured[0]
 
 
+def torch_sum_depth(n: int) -> int:
+    """The height of the tree in which torch.sum adds n contiguous f32
+    values on the card (ATen/native/cuda/Reduce.cuh): vectors of 4 go to
+    4 accumulators a thread, a chain of at most ceil(n / 2048) adds with
+    the 512 threads of a block, plus an unaligned head and tail (2; a split
+    of the input over blocks only shortens the chain); then the 4
+    accumulators are added (3) and the block's threads reduced in a tree
+    (9); where blocks share the input, one block adds their partials (at
+    most ceil(n / 131072) serial adds a thread and another tree of 9)."""
+    return -(-n // 2048) + 2 + 3 + 9 + -(-n // 131072) + 9
+
+
+def gp_cost_bound(args, f32_constants=True) -> tuple:
+    """(cost, bound): GP's cost at its initial state (cost_of at c0, X0 of
+    _solve_gp's arguments) in f64 of the f32 arguments, and the first-order
+    bound on the f32 evaluation on the card, from the order of its
+    operations (u = 2^-24 per rounding):
+      d = (X[p] - c[f]) + u_rig        u |X - c| + u |d| a component
+      dn2 = sum d^2, num = sum t d     three terms in any order: 3u of the
+                                       sum of |terms|, plus d's error
+      s = max(num / dn2, 1e-5)         the division's u |s| and what the
+                                       errors of num and dn2 carry
+      r = t - s d                      |d| ds + s dd + u |s d| + u |r|
+      x = |r|^2                        B6's order, 3u x, plus 2 |r| dr
+    then Huber's step (huber_bounds) and the weight product u |o_w c|
+    per observation; the same for camera edges (d = c[j] - c[i]); then
+    torch.sum of each family's weighted costs, torch_sum_depth(n) u of
+    their sum, and the add of the two families. Not a tuned number. With
+    f32_constants False, the cost is the f64 solve's (its Huber constants
+    in f64)."""
+    u = 2.0 ** -24
+    c0, X0, of, op, tT, uT, ow, ci, cj, tcc, cw = (
+        a.detach().cpu().double() if a.is_floating_point()
+        else a.detach().cpu().long() for a in args[:11])
+    delta = args[13]
+    families = []
+    if of.numel():
+        a = X0[op].T - c0[of].T
+        d = a + uT
+        families.append((d, u * (a.abs() + d.abs()), tT, ow))
+    if ci.numel():
+        d = c0[cj].T - c0[ci].T
+        families.append((d, u * d.abs(), tcc, cw))
+    total, bound = 0.0, 0.0
+    for d, e_d, t, wgt in families:
+        raw = (d * d).sum(0)
+        dn2 = torch.clamp(raw, min=1e-12)
+        e_dn2 = (2 * d.abs() * e_d).sum(0) + 3 * u * raw
+        num = (t * d).sum(0)
+        e_num = (t.abs() * e_d).sum(0) + 3 * u * (t * d).abs().sum(0)
+        q = num / dn2
+        e_q = e_num / dn2 + num.abs() * e_dn2 / dn2 ** 2 + u * q.abs()
+        s = torch.clamp(q, min=1e-5)
+        r = t - s * d
+        e_r = d.abs() * e_q + s * e_d + u * (s * d).abs() + u * r.abs()
+        x = (r * r).sum(0)
+        e_x = (2 * r.abs() * e_r).sum(0) + (3 * u + 2.0 ** -50) * x
+        _, c, _, bc = huber_bounds(x, e_x, delta, f32_constants)
+        h = wgt * c
+        bh = wgt * bc + (u + 2.0 ** -50) * h.abs()
+        n = h.numel()
+        total += float(h.sum())
+        bound += float(bh.sum()) + (torch_sum_depth(n) * u
+                                    + n * 2.0 ** -53) * float((h.abs()
+                                                               + bh).sum())
+    if len(families) == 2:
+        bound += u * abs(total)
+    return total, bound
+
+
+def gp_cost_at_start(args) -> dict:
+    """GP's cost at the shared initial state (_solve_gp with no LM
+    iteration: the cost evaluation alone, no CG) on the card (f32), against
+    its evaluation on the CPU in f64 from the same f32 arguments with the
+    card's f32 Huber constants, within gp_cost_bound's derived bound. That
+    evaluation must be the port's own f64 cost_of where the constants are
+    f64 too (to 1e-12); the CPU's plain f32 path is reported beside."""
+    def start(a):
+        return float(gpm._solve_gp(*a[:14], 0.0, 0, *a[16:])[2])
+
+    def on_cpu(dtype):
+        return tuple(x.cpu().to(dtype) if isinstance(x, torch.Tensor)
+                     and x.is_floating_point() else
+                     x.cpu() if isinstance(x, torch.Tensor) else x
+                     for x in args)
+    card, cpu32, cpu64 = (start(args), start(on_cpu(torch.float32)),
+                          start(on_cpu(torch.float64)))
+    ref, bound = gp_cost_bound(args)
+    replica = gp_cost_bound(args, f32_constants=False)[0]
+    if not abs(cpu64 - replica) <= 1e-12 * abs(cpu64):
+        raise AssertionError(f"GP cost at start: the bound's evaluation "
+                             f"{replica} is not _solve_gp's f64 {cpu64}")
+    gap = abs(card - ref)
+    if not gap <= bound:
+        raise AssertionError(f"GP cost at start: card {card} vs f64 {ref}, "
+                             f"gap {gap} above the derived bound {bound}")
+    return {"card": card, "f64": ref, "cpu_f32": cpu32,
+            "card_vs_f64_rel": gap / abs(ref), "bound_rel": bound / abs(ref),
+            "cpu_f32_vs_f64_rel": abs(cpu32 - ref) / abs(ref)}
+
+
 def gp_card_vs_cpu(args) -> dict:
     """CPU_ITERS LM iterations of _solve_gp, no early exit, on the card and
     on the CPU's plain path (f32) from the same arguments."""
@@ -1028,6 +1207,7 @@ def stages_phase(scene, vg, dev, gen, peak_bw, peak_flops):
             GlobalPositionerOptions(max_num_iterations=1), device=dev))
     gp_cases = record_cases(gp_one)
     card_vs_cpu = gp_card_vs_cpu(gp_args)
+    at_start = gp_cost_at_start(gp_args)
     del gp_args
 
     # stage 5 twice from the same state, counted; then stage 6
@@ -1101,6 +1281,7 @@ def stages_phase(scene, vg, dev, gen, peak_bw, peak_flops):
                             "median": float(np.median(err6))},
         "center_bound": GP_CENTER_BOUND,
         "gp_card_vs_cpu_f32_after_3": card_vs_cpu,
+        "gp_cost_at_start": at_start,
         "stage5_bitwise_reproducible": True,
         "camera_segment_offset_invariant_cases": offset_checked,
         "peak_device_bytes": peak_bytes,
@@ -1149,6 +1330,10 @@ def main() -> int:
                        peak_bw, peak_flops, on_path=False)
     per_kernel["projection_resid_jac"][0].append(res)
     per_kernel["projection_resid_jac"][1].append(0)
+    for args in gather_extra_cases(cases, gen):
+        per_kernel["gather"][0].append(measure_case(
+            "gather", args, gen, peak_bw, peak_flops, on_path=False))
+        per_kernel["gather"][1].append(0)
     offset_checked = offset_invariance(cases, gen)
     del cases
     # estimated device time of the four kernels in one LM iteration

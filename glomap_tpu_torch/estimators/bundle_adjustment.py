@@ -258,9 +258,8 @@ def _solve_ba(frame_quat, frame_trans, cam_params, points,
         # the projection kernel's residual; its Jacobian goes unused
         rows, _ = persp_rows(fq, ft, sq, st, cp, X)
         rT, _ = kernels.projection_resid_jac(*rows)
-        _, c = kernels.huber_weight_cost(rT[0] * rT[0] + rT[1] * rT[1],
-                                         huber_delta)
-        return torch.sum(o_w * c)
+        _, c = kernels.huber_irls(rT, huber_delta, o_w)
+        return torch.sum(c)
 
     def tie_g(g_raw):  # (C, 16) -> T^T g
         return _bmv(T_t, g_raw)
@@ -276,9 +275,7 @@ def _solve_ba(frame_quat, frame_trans, cam_params, points,
         rows, ts3 = persp_rows(fq, ft, sq, st, cp, X)
         rT, JT = kernels.projection_resid_jac(
             *rows, ts3 if optimize_rig else None)
-        w, _ = kernels.huber_weight_cost(rT[0] * rT[0] + rT[1] * rT[1],
-                                         huber_delta)
-        w = o_w * w
+        w, _ = kernels.huber_irls(rT, huber_delta, o_w)
         sw = torch.sqrt(w)
         # whitened rows: every reduction below is a plain product sum
         J3 = (JT * sw).reshape(2, zdim, num_obs)

@@ -139,23 +139,18 @@ def _solve_gp(c0, X0,
     def cost_of(c, X):
         cost = torch.zeros((), dtype=dtype, device=dev)
         if num_obs:
-            rT = rows_obs(c, X)[3]
-            _, h = kernels.huber_weight_cost(torch.sum(rT * rT, 0),
-                                             huber_delta)
-            cost = cost + torch.sum(obs_w * h)
+            _, h = kernels.huber_irls(rows_obs(c, X)[3], huber_delta, obs_w)
+            cost = cost + torch.sum(h)
         if num_cc:
-            rcT = rows_cc(c)[3]
-            _, h = kernels.huber_weight_cost(torch.sum(rcT * rcT, 0),
-                                             huber_delta)
-            cost = cost + torch.sum(cc_w * h)
+            _, h = kernels.huber_irls(rows_cc(c)[3], huber_delta, cc_w)
+            cost = cost + torch.sum(h)
         return cost
 
     def irls_rows(dT, dn2, s, rT, w0):
         """Weighted gradient rows w s r, moments and B5's U of one
         constraint family (the Golub-Pereyra projected Jacobian: dL/ds = 0
         at the projected scale, so the gradient is unchanged)."""
-        w, _ = kernels.huber_weight_cost(torch.sum(rT * rT, 0), huber_delta)
-        w = w0 * w
+        w, _ = kernels.huber_irls(rT, huber_delta, w0)
         hT = dT / torch.sqrt(dn2)
         a = w * s * s
         return (w * s) * rT, _moments(a, hT), _proj_rows(a, hT, eye9)
@@ -254,8 +249,8 @@ def _sensor_gn(c, X, of, op, tT, uT, ow, q_f_o, unk_o, o_sens, cs,
         dn2 = torch.clamp(torch.sum(d * d, -1), min=1e-12)
         s = torch.clamp(torch.sum(t_obs * d, -1) / dn2, min=1e-5)
         r = t_obs - s[:, None] * d
-        w, _ = kernels.huber_weight_cost(torch.sum(r * r, -1), huber_delta)
-        w = torch.where(unk_o, ow * w, torch.zeros_like(w))
+        w, _ = kernels.huber_irls(r.T.contiguous(), huber_delta, ow)
+        w = torch.where(unk_o, w, torch.zeros_like(w))
         dhat = d / torch.sqrt(dn2)[:, None]
         P = eye3 - dhat[:, :, None] * dhat[:, None, :]
         RPRt = torch.einsum("oij,ojk,olk->oil", Rf, P, Rf)

@@ -4,7 +4,7 @@ Counterpart of glomap_tpu/ops/pallas_kernels.py. Each kernel comes in
 three parts:
 
   * a wrapper (`projection_resid_jac`, `gather`, `rowsum`,
-    `pair_rowsum`, `gather_dot`, `huber_weight_cost`, `sampson_score`)
+    `pair_rowsum`, `gather_dot`, `huber_irls`, `sampson_score`)
     that takes the plain version for a
     CPU tensor and otherwise launches the CUDA kernel (`_*_cuda`) or
     raises -- there is no fallback;
@@ -42,6 +42,17 @@ SAMPSON_EPS = 1e-12
 # observations a lane), one block's in pair_rowsum.cu
 ROWSUM_CHUNK = 128
 PAIR_CHUNK = 512
+# gather.cu (gather_plan): where a launch reads its table (in place, or
+# staged whole in each block's shared memory: tables of 2 to
+# GATHER_WHOLE_ROWS rows of at least GATHER_WHOLE_K columns that fit
+# GATHER_SMEM_BYTES), and the observations a thread writes with one store
+# (4 for tables of at most 2 columns on axes of GATHER_WIDE_OBS or more, else
+# 1); chosen from measurements on an H100 (PERF.md)
+GATHER_DIRECT, GATHER_WHOLE = 0, 1
+GATHER_WHOLE_ROWS = 128
+GATHER_WHOLE_K = 16
+GATHER_SMEM_BYTES = 32 << 10
+GATHER_WIDE_OBS = 1 << 20
 
 
 def reset_launch_counts() -> None:
@@ -349,18 +360,26 @@ def gather_dot_plain(tab: torch.Tensor, U: torch.Tensor,
     return (U.reshape(U.shape[0] // k, k, -1) * tab[ids].T[None]).sum(1)
 
 
-def huber_weight_cost_plain(r2: torch.Tensor, delta: float):
-    """Squared norms (O,) -> (IRLS weight, cost) of Ceres'
-    HuberLoss(delta): w = 1 and c = r2 inside delta, else w = delta / |r|
-    and c = 2 delta |r| - delta^2; |r| = sqrt(max(r2, 1e-30)). The
-    division is tensor by tensor, one rounding (`delta / rn` would be
-    rn.reciprocal() * delta in PyTorch, two)."""
+def huber_irls_plain(r: torch.Tensor, delta: float, weight=None):
+    """Residual rows (k, O) -> (IRLS weight, cost) of Ceres'
+    HuberLoss(delta) at x = |r|^2, times `weight` (O,) when given:
+    w = 1 and c = x inside delta, else w = delta / |r| and
+    c = 2 delta |r| - delta^2, |r| = sqrt(max(x, 1e-30)). x adds the
+    squares in row order, ((r0 r0 + r1 r1) + r2 r2), each operation
+    rounded once, as huber.cu does. The division is tensor by tensor, one
+    rounding (`delta / rn` would be rn.reciprocal() * delta in PyTorch,
+    two)."""
+    x = r[0] * r[0]
+    for j in range(1, r.shape[0]):
+        x = x + r[j] * r[j]
     d2 = delta * delta
-    rn = torch.sqrt(torch.clamp(r2, min=1e-30))
-    inside = r2 <= d2
-    w = torch.where(inside, torch.ones_like(r2),
+    rn = torch.sqrt(torch.clamp(x, min=1e-30))
+    inside = x <= d2
+    w = torch.where(inside, torch.ones_like(x),
                     torch.full_like(rn, delta) / rn)
-    c = torch.where(inside, r2, (2.0 * delta) * rn - d2)
+    c = torch.where(inside, x, (2.0 * delta) * rn - d2)
+    if weight is not None:
+        w, c = weight * w, weight * c
     return w, c
 
 
@@ -428,11 +447,12 @@ def gather_dot(tab: torch.Tensor, U: torch.Tensor,
     return _gather_dot_cuda(tab, U, axis)
 
 
-def huber_weight_cost(r2: torch.Tensor, delta: float):
-    """(O,) squared norms -> (weights (O,), costs (O,)) of HuberLoss."""
-    if r2.device.type == "cpu":
-        return huber_weight_cost_plain(r2, delta)
-    return _huber_weight_cost_cuda(r2, delta)
+def huber_irls(r: torch.Tensor, delta: float, weight=None):
+    """Residual rows (k, O) [, weight (O,)] -> (weight * w, weight * c),
+    the IRLS weights and costs of HuberLoss(delta) at |r|^2."""
+    if r.device.type == "cpu":
+        return huber_irls_plain(r, delta, weight)
+    return _huber_irls_cuda(r, delta, weight)
 
 
 def sampson_score(E9: torch.Tensor, x1T: torch.Tensor,
@@ -452,11 +472,12 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "projection": ("glomap_projection_resid_jac",
                    [_P] * 10 + [_I, _P]),
-    "gather": ("glomap_gather", [_P, _P, _P, _I, _I, _I, _P]),
+    "gather": ("glomap_gather", [_P, _P, _P] + [_I] * 7 + [_P]),
     "rowsum": ("glomap_rowsum", [_P] * 8 + [_I] * 4 + [_P]),
     "pair_rowsum": ("glomap_pair_rowsum", [_P] * 9 + [_I] * 15 + [_P]),
     "gather_dot": ("glomap_gather_dot", [_P] * 4 + [_I] * 4 + [_P]),
-    "huber": ("glomap_huber", [_P] * 3 + [ctypes.c_float] * 3 + [_I, _P]),
+    "huber": ("glomap_huber_irls", [_P] * 4 + [_I] + [ctypes.c_float] * 3
+              + [_I, _P]),
     "sampson": ("glomap_sampson", [_P] * 4 + [_I, _P]),
 }
 _entries: dict = {}
@@ -558,8 +579,9 @@ def _gather_cuda(tab: torch.Tensor, axis: SegmentAxis) -> torch.Tensor:
     _check_axis(axis, axis.num_obs, dev)
     k, O = tab.shape[1], axis.num_obs
     out = torch.empty((k, O), dtype=torch.float32, device=dev)
+    mode, width, pitch, smem = gather_plan(axis.n_seg, k, O)
     rc = fn(tab.data_ptr(), axis.ids.data_ptr(), out.data_ptr(),
-            axis.n_seg, k, O, _stream(dev))
+            axis.n_seg, k, O, mode, width, pitch, smem, _stream(dev))
     _raise_on(rc, "gather")
     LAUNCHES["gather"] += 1
     return out
@@ -657,6 +679,24 @@ def pair_stage_len(rows: int, longest: int) -> int:
     return s
 
 
+def gather_plan(n_rows: int, k: int, num_obs: int) -> tuple:
+    """(mode, width, pitch, smem_bytes) of gather.cu for a table of
+    n_rows x k gathered onto num_obs observations. GATHER_WHOLE stages
+    the table in each block's shared memory, rows at the odd pitch k | 1
+    (neighbouring rows on other banks), where 1 < n_rows <=
+    GATHER_WHOLE_ROWS, k >= GATHER_WHOLE_K and it fits GATHER_SMEM_BYTES:
+    a point-major frame axis, whose warps read many rows of a wide table
+    at once; otherwise GATHER_DIRECT reads it in place through L1. width
+    is 4 observations a thread (16-byte stores) for tables of at most 2
+    columns on GATHER_WIDE_OBS or more observations, else 1."""
+    pitch = k | 1
+    whole = (1 < n_rows <= GATHER_WHOLE_ROWS and k >= GATHER_WHOLE_K
+             and 4 * n_rows * pitch <= GATHER_SMEM_BYTES)
+    width = 4 if k <= 2 and num_obs >= GATHER_WIDE_OBS else 1
+    return ((GATHER_WHOLE, width, pitch, 4 * n_rows * pitch) if whole
+            else (GATHER_DIRECT, width, pitch, 0))
+
+
 def _pair_rowsum_cuda(U, V, pairs, axis: SegmentAxis) -> torch.Tensor:
     fn = _entry("pair_rowsum")
     dev = U.device
@@ -708,18 +748,25 @@ def _gather_dot_cuda(tab: torch.Tensor, U: torch.Tensor,
     return out
 
 
-def _huber_weight_cost_cuda(r2: torch.Tensor, delta: float):
+def _huber_irls_cuda(r: torch.Tensor, delta: float, weight=None):
     fn = _entry("huber")
-    dev = r2.device
-    O = r2.shape[0] if r2.dim() == 1 else -1
-    _check_rows("huber_weight_cost r2", r2[None], 1, O, dev)
+    dev = r.device
+    k = r.shape[0] if r.dim() == 2 else -1
+    if k not in (2, 3):
+        raise ValueError(f"huber_irls: the CUDA kernel takes 2 or 3 residual "
+                         f"rows, got shape {tuple(r.shape)}")
+    O = r.shape[1]
+    _check_rows("huber_irls r", r, k, O, dev)
+    if weight is not None:
+        _check_rows("huber_irls weight", weight[None], 1, O, dev)
     w = torch.empty((O,), dtype=torch.float32, device=dev)
     c = torch.empty((O,), dtype=torch.float32, device=dev)
     # the plain version's f32 constants: PyTorch rounds each Python
     # scalar to the tensor's dtype, as ctypes.c_float does here
-    rc = fn(r2.data_ptr(), w.data_ptr(), c.data_ptr(), float(delta),
+    rc = fn(r.data_ptr(), None if weight is None else weight.data_ptr(),
+            w.data_ptr(), c.data_ptr(), k, float(delta),
             float(delta) * float(delta), 2.0 * float(delta), O, _stream(dev))
-    _raise_on(rc, "huber_weight_cost")
+    _raise_on(rc, "huber_irls")
     LAUNCHES["huber"] += 1
     return w, c
 

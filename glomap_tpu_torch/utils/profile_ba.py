@@ -6,8 +6,9 @@ Runs _solve_ba on the committed .bench_cache.npz problem (100 frames,
 1001 points, 100,100 observations, f32) with bench.py's settings. It
 times N LM iterations on the host clock (ending in a synchronize), then
 traces W more with torch.profiler and prints one JSON line: LM
-iterations per second, the device time and launches per LM iteration,
-the device's busy share of the traced window, the time of each of the
+iterations per second, the device time and launches per LM iteration
+(also by kind: each of the port's kernels, PyTorch's elementwise and
+reduction kernels, the rest), the device's busy share of the traced window, the time of each of the
 port's six BA kernels, the largest device kernels by time, and the host's
 scalar reads (each one waits for the card). Counterpart of the JAX
 package's scripts/profile_ba.py. Without a CUDA device it raises.
@@ -42,6 +43,18 @@ def _ours(name: str):
         if k in name:
             return k
     return None
+
+
+def _kind(name: str) -> str:
+    """The port's kernel behind a device kernel name, else PyTorch's
+    elementwise or reduction kernels, else "other": the fused Huber step
+    shows as fewer elementwise (and, on GP, reduction) launches."""
+    k = _ours(name)
+    if k is not None:
+        return k
+    if "elementwise" in name:
+        return "elementwise"
+    return "reduce" if "reduce_kernel" in name else "other"
 
 
 def profile(iters: int = 30, window: int = 5) -> dict:
@@ -89,6 +102,9 @@ def profile(iters: int = 30, window: int = 5) -> dict:
         if k is not None:
             ours[k][0] += ms / window
             ours[k][1] += dev_n[name] / window
+    kinds = defaultdict(float)
+    for name, n in dev_n.items():
+        kinds[_kind(name)] += n / window
     top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:12]
     return {
         "card": card,
@@ -102,6 +118,7 @@ def profile(iters: int = 30, window: int = 5) -> dict:
         "device_busy_share": (total / wall_ms) if total else "not measured",
         "device_launches_per_lm_iter": sum(dev_n.values()) / window,
         "host_scalar_reads_per_lm_iter": host_reads / window,
+        "launches_by_kind_per_lm_iter": dict(sorted(kinds.items())),
         "our_kernels_ms_and_launches_per_lm_iter": {
             k: {"ms": v[0], "launches": v[1]} for k, v in ours.items()},
         "top_device_ms_per_lm_iter": [

@@ -8,8 +8,8 @@ the inlier sweep and filtered on the card, then stage 4's tracks), times
 N solve_global_positioning runs with the default options on the host
 clock (each ending in a synchronize), then traces one more with
 torch.profiler and prints one JSON line: LM and CG iterations, LM
-iterations per second, the device time, launches and host reads per LM
-iteration, the device's busy share of the traced solve, the time and
+iterations per second, the device time, launches (also by kind, as
+profile_ba counts them) and host reads per LM iteration, the device's busy share of the traced solve, the time and
 launches of the port's kernels, and the largest device kernels. Without a
 CUDA device it raises.
 """
@@ -61,6 +61,18 @@ def _ours(name: str):
                  if f"::{k}(" in name or f"::{k}<" in name), None)
 
 
+def _kind(name: str) -> str:
+    """The port's kernel behind a device kernel name, else PyTorch's
+    elementwise or reduction kernels, else "other": the fused Huber step
+    shows as fewer elementwise (and, on GP, reduction) launches."""
+    k = _ours(name)
+    if k is not None:
+        return k
+    if "elementwise" in name:
+        return "elementwise"
+    return "reduce" if "reduce_kernel" in name else "other"
+
+
 def profile(runs: int = 2) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("profile_gp needs a CUDA device")
@@ -104,6 +116,9 @@ def profile(runs: int = 2) -> dict:
         if k is not None:
             ours[k][0] += ms / lm
             ours[k][1] += dev_n[name] / lm
+    kinds = defaultdict(float)
+    for name, n in dev_n.items():
+        kinds[_kind(name)] += n / lm
     top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:12]
     return {
         "card": card,
@@ -121,6 +136,7 @@ def profile(runs: int = 2) -> dict:
         "not measured",
         "device_launches_per_lm_iter": sum(dev_n.values()) / lm,
         "host_scalar_reads_per_lm_iter": host_reads / lm,
+        "launches_by_kind_per_lm_iter": dict(sorted(kinds.items())),
         "our_kernels_ms_and_launches_per_lm_iter": {
             k: {"ms": v[0], "launches": v[1]} for k, v in ours.items()},
         "top_device_ms_per_lm_iter": [

@@ -170,8 +170,8 @@ def _launch_cases():
          (rows(9), rows(3), rows(3))),
         ("gather_dot", kernels._gather_dot_cuda,
          (torch.randn(5, 4), rows(8), ax)),
-        ("huber_weight_cost", kernels._huber_weight_cost_cuda,
-         (torch.rand(O, generator=g), 1.0)),
+        ("huber_irls", kernels._huber_irls_cuda,
+         (rows(2), 1.0, torch.rand(O, generator=g))),
     ]
 
 

@@ -6,9 +6,11 @@ kernel over every camera kind with distortion, with and without the rig
 columns; the segment reductions and gathers with empty segments, a
 ragged tail, ids unsorted inside a window, and the J^T y, Gram and
 triple-term Schur-correction `pairs`; the Sampson score; the Huber
-sweep (B6, rtol 1e-15) and the fused J * gather (B5) at the path's
-shapes and on unsorted ids. The Pallas kernels run in
-interpret mode and x64, as the JAX suite runs them; the port goes through
+step (B6: squares, Huber and weight products, rtol 1e-15) and the fused
+J * gather (B5) at the path's shapes and on unsorted ids; the gather
+(B2) bit for bit at the path's widths with every O % 4. The Pallas
+kernels run in interpret mode and x64, as the JAX suite runs them; the
+port goes through
 its wrappers, which take the plain version for CPU tensors. Inputs are
 made with numpy from a seed and handed to both packages.
 
@@ -214,6 +216,56 @@ def test_gather_plain_matches_pallas(ids, t, k, block):
     np.testing.assert_array_equal(out.numpy(), tab[ids].T)
 
 
+GATHER_SHAPE_CASES = [
+    # (k, O, table rows, ids): the path's widths (the sweep's tie rows and
+    # 53-row pair table, points, the camera and frame-sensor tables) with
+    # every O % 4, on sorted, windowed and unsorted ids, and an empty axis
+    (1, 2048, 300, "sorted"),
+    (2, 2049, 300, "sorted"),
+    (3, 2050, 1001, "sorted"),
+    (17, 2051, 1, "sorted"),
+    (24, 3000, 100, "windowed"),
+    (53, 2047, 60, "sorted"),
+    (3, 1021, 100, "unsorted"),
+    (53, 1030, 400, "unsorted"),
+    (24, 0, 100, "empty"),
+]
+
+
+@pytest.mark.parametrize("k,n,t,kind", GATHER_SHAPE_CASES,
+                         ids=[f"k{c[0]}-O{c[1]}-{c[3]}"
+                              for c in GATHER_SHAPE_CASES])
+def test_gather_plain_matches_pallas_at_path_widths(k, n, t, kind):
+    """B2's plain version bit for bit: against the Pallas kernel (interpret
+    mode) on sorted and windowed ids; on unsorted ids, against the JAX
+    package's axis ops off the windowed path (make_axis_pair_ops' gather);
+    on an empty axis (which the Pallas kernel does not take) against
+    JAX's own indexing."""
+    from glomap_tpu.ops.segment_ops import make_axis_pair_ops as jax_ops
+    rng = np.random.default_rng(k * 10_000 + n)
+    if kind == "sorted":
+        ids = _sorted_ids(rng, n, t)
+    elif kind == "windowed":
+        ids = _windowed_ids(rng, n, t, 512)
+    else:
+        ids = rng.integers(0, t, n).astype(np.int32)
+    tab = rng.standard_normal((t, k))
+    if kind in ("sorted", "windowed"):
+        ref = pk.sorted_segment_gather(
+            jnp.asarray(tab), jnp.asarray(ids),
+            pk.block_width_for_sorted(ids, block=512), block=512,
+            interpret=True)
+    elif kind == "unsorted":
+        ref = jax_ops(jnp.asarray(ids), t, n, jnp.float64)[1](
+            jnp.asarray(tab))
+    else:
+        ref = jnp.asarray(tab)[jnp.asarray(ids)].T
+    out = kernels.gather(_t(tab), SegmentAxis.build(_t(ids), t))
+    assert tuple(out.shape) == (k, n) == np.asarray(ref).shape
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+    np.testing.assert_array_equal(out.numpy(), tab[ids].T)
+
+
 PAIR_CASES = [
     # J^T y: rows[i] = U[i]*V[0] + U[6+i]*V[1]
     (12, 2, tuple(((i, 0), (6 + i, 1)) for i in range(6))),
@@ -382,37 +434,58 @@ def test_sampson_plain_matches_pallas_and_two_view(case):
 # ----------------------------------------------------------------------------
 
 
-def _huber_r2():
-    """tests/test_pallas_kernels.py::test_huber_weight_cost_matches' inputs
-    plus r2 = 0, r2 = delta^2 exactly (for delta 1 and 0.5) and r2 below
-    the 1e-30 clamp."""
-    r2 = np.random.default_rng(1).uniform(0, 5, 1000)
-    return np.concatenate([r2, [0.0, 1.0, 0.25, 1e-31, 1e-40, 5e-324]])
+def _huber_rows(k):
+    """Residual rows (k, O) whose |r|^2 spans the range of
+    tests/test_pallas_kernels.py::test_huber_weight_cost_matches' inputs
+    (uniform on [0, 5]), then edge columns: zeros, |r|^2 = delta^2 exactly
+    for delta 1, 0.5 and 1e3, |r|^2 = 1e-32 and 1e-40 below the 1e-30
+    clamp, and a NaN."""
+    rng = np.random.default_rng(1)
+    r = rng.uniform(-1.3, 1.3, (k, 1000))
+    edge = np.zeros((k, 7))
+    edge[0, 1:] = [1.0, 0.5, 1e3, 1e-16, 1e-20, np.nan]
+    return np.concatenate([r, edge], axis=1)
 
 
+@pytest.mark.parametrize("weighted", [False, True],
+                         ids=["no-weight", "weight"])
+@pytest.mark.parametrize("k", [2, 3])
 @pytest.mark.parametrize("delta", [1.0, 0.5, 1e3])
-def test_huber_plain_matches_pallas_and_jax(delta):
-    """rtol 1e-15: the same closed form, one rounding per operation on
-    both sides, against the Pallas kernel (interpret mode) and the JAX
-    GP's _huber_weight/_huber_cost."""
+def test_huber_plain_matches_pallas_and_jax(delta, k, weighted):
+    """B6, the solvers' fused IRLS step (squares in row order, Huber,
+    weight products), against the callers' composition around the Pallas
+    kernel (interpret mode) and around the JAX GP's
+    _huber_weight/_huber_cost: rtol 1e-15, one rounding per operation on
+    both sides, NaN where the other side has NaN."""
     from glomap_tpu.estimators import global_positioning as jgp
-    r2 = _huber_r2()
-    w, c = kernels.huber_weight_cost(_t(r2), delta)
-    assert w.shape == c.shape == (len(r2),)
-    w_p, c_p = pk.huber_weight_cost(jnp.asarray(r2), delta=delta,
+    r = _huber_rows(k)
+    x = r[0] * r[0]
+    for j in range(1, k):
+        x = x + r[j] * r[j]
+    weight = np.random.default_rng(2).uniform(0, 2, r.shape[1])
+    weight[:50] = 0.0
+    w, c = kernels.huber_irls(_t(r), delta,
+                              _t(weight) if weighted else None)
+    assert w.shape == c.shape == (r.shape[1],)
+    scale = weight if weighted else 1.0
+    w_p, c_p = pk.huber_weight_cost(jnp.asarray(x), delta=delta,
                                     interpret=True)
     for ref_w, ref_c in ((w_p, c_p),
-                         (jgp._huber_weight(jnp.asarray(r2), delta),
-                          jgp._huber_cost(jnp.asarray(r2), delta))):
-        np.testing.assert_allclose(w.numpy(), np.asarray(ref_w), rtol=1e-15,
-                                   atol=0)
-        np.testing.assert_allclose(c.numpy(), np.asarray(ref_c), rtol=1e-15,
-                                   atol=0)
-    inside = r2 <= delta * delta
-    assert inside[-6:].tolist() == [True, delta >= 1.0, delta >= 0.5,
-                                    True, True, True]
-    np.testing.assert_array_equal(w.numpy()[inside], 1.0)
-    np.testing.assert_array_equal(c.numpy()[inside], r2[inside])
+                         (jgp._huber_weight(jnp.asarray(x), delta),
+                          jgp._huber_cost(jnp.asarray(x), delta))):
+        np.testing.assert_allclose(w.numpy(), scale * np.asarray(ref_w),
+                                   rtol=1e-15, atol=0)
+        np.testing.assert_allclose(c.numpy(), scale * np.asarray(ref_c),
+                                   rtol=1e-15, atol=0)
+    edge = x[-7:]
+    np.testing.assert_array_equal(
+        edge[:6] <= delta * delta,
+        [True, delta >= 1.0, delta >= 0.5, delta >= 1e3, True, True])
+    assert np.isnan(w.numpy()[-1]) and np.isnan(c.numpy()[-1])
+    inside = x <= delta * delta
+    sc = weight[inside] if weighted else 1.0
+    np.testing.assert_array_equal(w.numpy()[inside], sc * 1.0)
+    np.testing.assert_array_equal(c.numpy()[inside], sc * x[inside])
 
 
 # ----------------------------------------------------------------------------

@@ -173,12 +173,14 @@ def test_order_obs_for_locality_matches_jax_and_roundtrips():
 
 
 def test_huber_matches_jax():
-    """BA's Huber weight and cost, now B6 (kernels.huber_weight_cost,
-    its plain version on the CPU), against the JAX BA's own."""
-    r2 = np.random.default_rng(1).uniform(0, 5, 1000)
-    r2[:3] = [0.0, 1.0, 1e-40]
+    """BA's Huber weight and cost, now B6 (kernels.huber_irls on the
+    residual rows, its plain version on the CPU), against the JAX BA's
+    own on the squared norms."""
+    rT = np.random.default_rng(1).uniform(-1.5, 1.5, (2, 1000))
+    rT[:, :3] = [[0.0, 1.0, 1e-20], [0.0, 0.0, 0.0]]
+    r2 = rT[0] * rT[0] + rT[1] * rT[1]
     for delta in (1.0, 0.5):
-        w, c = tkern.huber_weight_cost(_t(r2), delta)
+        w, c = tkern.huber_irls(_t(rT), delta)
         _close(w, jba._huber_weight(jnp.asarray(r2), delta))
         _close(c, jba._huber_cost(jnp.asarray(r2), delta))
 
