@@ -1,0 +1,312 @@
+"""GlobalMapper: the global SfM pipeline's controller.
+
+Counterpart of glomap_tpu/controllers/global_mapper.py (GlobalMapper.solve),
+itself the counterpart of glomap/controllers/global_mapper.{h,cc}
+(GlobalMapper::Solve, :19-361). The port runs stage 4 (track
+establishment), stage 5 (global positioning and its filters), stage 6
+(iterated staged bundle adjustment with progressive filtering and the
+early exit under 0.1% of the tracks filtered), the deregistration of
+frames left without observations, and stage 8 (pruning), with the same
+thresholds and budgets, and stage-boundary checkpoints: with
+options.checkpoint_dir set, stage_NN.npz holds the exact state after stage
+NN, and the next run resumes at NN + 1.
+
+Stages 0-3 and 7 are not ported yet. Options that would run one raise
+NotImplementedError before any stage runs, naming the ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import glob
+import logging
+import os
+
+import numpy as np
+import torch
+
+from glomap_tpu_torch.config import GlobalMapperOptions
+from glomap_tpu_torch.controllers import track_establishment as te
+from glomap_tpu_torch.device import resolve_device
+from glomap_tpu_torch.estimators import global_positioning as gpm
+from glomap_tpu_torch.estimators.bundle_adjustment import (
+    solve_bundle_adjustment)
+from glomap_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
+from glomap_tpu_torch.processors import track_filter as tf
+from glomap_tpu_torch.processors.normalization import normalize_reconstruction
+from glomap_tpu_torch.processors.pruning import prune_weakly_connected_images
+from glomap_tpu_torch.processors.undistortion import undistort_images
+from glomap_tpu_torch.scene.arrays import Scene, Tracks
+from glomap_tpu_torch.scene.view_graph import ViewGraph
+from glomap_tpu_torch.utils.profiling import StageTimer, device_clock
+
+logger = logging.getLogger(__name__)
+
+# (stage, its skip option, its name, the ROADMAP item that ports it)
+UNPORTED_STAGES = (
+    (0, "skip_preprocessing", "preprocessing", "A10"),
+    (1, "skip_view_graph_calibration", "view graph calibration", "A10"),
+    (2, "skip_relative_pose_estimation", "relative pose estimation", "A10"),
+    (3, "skip_rotation_averaging", "rotation averaging", "A9"),
+    (7, "skip_retriangulation", "retriangulation", "A8"),
+)
+
+
+class GlobalMapper:
+    """The pipeline on one device: CUDA unless `device` says otherwise
+    (device=None without CUDA raises). `dtype` None means float64 on the
+    CPU and float32 on CUDA, whose kernels take f32. After a run,
+    `timer.stages` holds the seconds of each stage and `reports` what each
+    ported stage did, by stage name."""
+
+    def __init__(self, options: GlobalMapperOptions | None = None,
+                 device=None, dtype: torch.dtype | None = None):
+        self.options = options or GlobalMapperOptions()
+        self.device = resolve_device(device)
+        self.dtype = dtype or (torch.float64 if self.device.type == "cpu"
+                               else torch.float32)
+        self.timer = StageTimer(self.device)
+        self.reports = {}
+
+    def solve(self, scene: Scene, view_graph: ViewGraph,
+              tracks: Tracks | None = None) -> Tracks | None:
+        """Run the pipeline; mutates scene and view_graph, returns the
+        tracks (None on failure)."""
+        opt = self.options
+        if opt.device_mesh_shape:
+            raise NotImplementedError(
+                "the multi-device solvers are not ported (ROADMAP A12)")
+        start_stage, state = 0, None
+        if opt.checkpoint_dir:
+            start_stage, state = _latest_checkpoint(opt.checkpoint_dir)
+        for idx, flag, name, item in UNPORTED_STAGES:
+            if start_stage <= idx and not getattr(opt, flag):
+                raise NotImplementedError(
+                    f"stage {idx} ({name}) is not ported yet (ROADMAP "
+                    f"{item}); set {flag}")
+        if state is not None:
+            tracks = _resume_into(state, scene, view_graph, tracks)
+
+        def ckpt(idx):
+            if opt.checkpoint_dir:
+                _write_stage_checkpoint(opt.checkpoint_dir, idx, scene,
+                                        view_graph, tracks)
+
+        for idx in range(4):  # stages 0-3 are skipped (checked above)
+            ckpt(idx)
+
+        # 4. Track establishment and selection
+        if start_stage <= 4 and not opt.skip_track_establishment:
+            with self.timer.stage("track establishment"):
+                tracks = self.establish_tracks(scene, view_graph)
+        if tracks is None:
+            tracks = Tracks()
+        ckpt(4)
+
+        # 5. Global positioning
+        if start_stage <= 5 and not opt.skip_global_positioning:
+            with self.timer.stage("global positioning"):
+                if not self.global_positioning(scene, view_graph, tracks):
+                    return None
+        ckpt(5)
+
+        # 6. Iterated staged bundle adjustment
+        if start_stage <= 6 and not opt.skip_bundle_adjustment:
+            with self.timer.stage("bundle adjustment"):
+                if not self.bundle_adjustment(scene, tracks):
+                    return None
+        ckpt(6)
+        ckpt(7)  # stage 7 (retriangulation) is skipped (checked above)
+
+        # frames that end with no valid observation carry no geometric
+        # support: drop them from the output instead of writing a junk pose
+        deregister_unsupported(scene, tracks)
+
+        # 8. Pruning
+        if start_stage <= 8 and not opt.skip_pruning:
+            with self.timer.stage("pruning"):
+                prune_weakly_connected_images(scene, tracks)
+
+        logger.info("stage summary:\n%s", self.timer.summary())
+        return tracks
+
+    def establish_tracks(self, scene: Scene, vg: ViewGraph) -> Tracks:
+        """Stage 4: every track of the inlier matches, then the selection
+        for the problem."""
+        opt = self.options
+        t0 = device_clock(self.device)
+        full = te.establish_full_tracks(scene, vg, opt.opt_track)
+        tracks = te.find_tracks_for_problem(scene, full, opt.opt_track)
+        logger.info("Before filtering: %d, after filtering: %d",
+                    full.num_tracks, tracks.num_tracks)
+        self.reports["track establishment"] = {
+            "seconds": device_clock(self.device) - t0,
+            "tracks_full": full.num_tracks, "tracks": tracks.num_tracks,
+            "observations": tracks.num_obs}
+        return tracks
+
+    def global_positioning(self, scene: Scene, vg: ViewGraph,
+                           tracks: Tracks) -> bool:
+        """Stage 5: global positioning, its three filters, normalization,
+        and the rescue of frames the solve left without observations."""
+        opt, dev = self.options, self.device
+        thr = opt.inlier_thresholds
+        if opt.opt_gp.constraint_type != "ONLY_POINTS":
+            logger.error("Only points are used for camera positions")
+            return False
+        t0 = device_clock(dev)
+        undistort_images(scene, device=dev)
+        gp = {}
+        t1 = device_clock(dev)
+        if not gpm.solve_global_positioning(scene, vg, tracks, opt.opt_gp,
+                                            dtype=self.dtype, device=dev,
+                                            stats=gp):
+            return False
+        gp["seconds"] = device_clock(dev) - t1
+        removed = {
+            "angle_obs": tf.filter_tracks_by_angle(
+                scene, tracks, thr.max_angle_error),
+            "triangulation_angle_tracks":
+                tf.filter_tracks_by_triangulation_angle(
+                    scene, tracks, thr.min_triangulation_angle),
+            "reprojection_obs": tf.filter_tracks_by_reprojection(
+                scene, tracks, 10 * thr.max_reprojection_error)}
+        normalize_reconstruction(scene, tracks)
+        # GP's random init can leave a frame that LM never pulled in
+        # failing every filter above, with no observation left: place it
+        # from its neighbors' pair directions
+        removed["rescued_frames"] = gpm.rescue_unplaced_frames(scene, vg,
+                                                               tracks)
+        self.reports["global positioning"] = {
+            "seconds": device_clock(dev) - t0, "gp": gp, "removed": removed}
+        return True
+
+    def bundle_adjustment(self, scene: Scene, tracks: Tracks) -> bool:
+        """Stage 6: rounds of BA (position only, then full), each followed
+        by normalization, the ray refresh and the progressive reprojection
+        filter with its early exit; then the final filters."""
+        opt, dev = self.options, self.device
+        thr = opt.inlier_thresholds
+        rounds = opt.num_iteration_bundle_adjustment
+        t0 = device_clock(dev)
+        ba, progressive = [], []
+
+        def solve(ba_opts) -> bool:
+            st = {}
+            t1 = device_clock(dev)
+            ok = solve_bundle_adjustment(scene, tracks, ba_opts,
+                                         dtype=self.dtype, device=dev,
+                                         stats=st)
+            st["seconds"] = device_clock(dev) - t1
+            ba.append(st)
+            return ok
+
+        ite = 0
+        while ite < rounds:
+            prev_cam_params = scene.cam_params.copy()
+            ba_opts_tr = copy.deepcopy(opt.opt_ba)
+            ba_opts_tr.optimize_rotations = False
+            if not solve(ba_opts_tr):
+                return False
+            logger.info("BA iter %d/%d stage 1 done (position only)",
+                        ite + 1, rounds)
+            if opt.opt_ba.optimize_rotations and not solve(opt.opt_ba):
+                return False
+            logger.info("BA iter %d/%d stage 2 done", ite + 1, rounds)
+            normalize_reconstruction(scene, tracks)
+            # BA moved the intrinsics: re-lift the rays before the
+            # normalized-space filter (global_mapper.cc:237-238)
+            _refresh_rays(scene, prev_cam_params, dev)
+            # progressive filtering with early exit (<0.1% filtered)
+            status, filtered = True, 0
+            while status and ite < rounds:
+                n = tf.filter_tracks_by_reprojection(
+                    scene, tracks,
+                    max(3 - ite, 1) * thr.max_reprojection_error)
+                progressive.append(n)
+                filtered += n
+                if filtered > 1e-3 * max(tracks.num_tracks, 1):
+                    status = False
+                else:
+                    ite += 1
+            if status:
+                logger.info("fewer than 0.1%% tracks filtered, stop")
+                break
+
+        # final filters at the tight threshold, against rays lifted with
+        # the final intrinsics (global_mapper.cc:263-264)
+        final = {
+            "reprojection_obs": tf.filter_tracks_by_reprojection(
+                scene, tracks, thr.max_reprojection_error),
+            "triangulation_angle_tracks":
+                tf.filter_tracks_by_triangulation_angle(
+                    scene, tracks, thr.min_triangulation_angle)}
+        self.reports["bundle adjustment"] = {
+            "seconds": device_clock(dev) - t0, "ba": ba,
+            "progressive_obs_removed": progressive, "final_removed": final}
+        return True
+
+
+def deregister_unsupported(scene: Scene, tracks: Tracks) -> int:
+    """The deregistration after stage 7 (global_mapper.py:336), skipped
+    when the tracks are empty: the reference keeps its frames then, where
+    the JAX package drops every one (ROADMAP C.1)."""
+    if tracks.num_obs == 0:
+        return 0
+    return gpm.deregister_unsupported_frames(scene, tracks)
+
+
+def _refresh_rays(scene: Scene, prev_cam_params: np.ndarray, device) -> None:
+    """Re-lift the keypoint rays when BA moved the intrinsics: the
+    normalized-space filters read scene.kp_ray, which must be lifted with
+    the current camera parameters (global_mapper.cc:237-238, 263-264)."""
+    if np.array_equal(prev_cam_params, scene.cam_params):
+        return
+    undistort_images(scene, device=device)
+
+
+def _write_stage_checkpoint(ckpt_dir: str, stage_idx: int, scene, vg,
+                            tracks) -> None:
+    """stage_NN.npz = the exact pipeline state after stage NN."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, f"stage_{stage_idx:02d}.npz")
+    save_checkpoint(path, scene, vg, tracks,
+                    next_stage=np.int64(stage_idx + 1))
+    logger.info("checkpoint written: %s", path)
+
+
+def _latest_checkpoint(ckpt_dir: str):
+    """(stage to resume at, load_checkpoint's result) of the latest
+    stage_NN.npz in ckpt_dir; (0, None) when there is none."""
+    found = sorted(glob.glob(os.path.join(ckpt_dir, "stage_*.npz")))
+    if not found:
+        return 0, None
+    state = load_checkpoint(found[-1])
+    start_stage = int(state[3].get("next_stage", 0))
+    logger.info("resuming from checkpoint %s at stage %d", found[-1],
+                start_stage)
+    return start_stage, state
+
+
+def _copy_state_into(dst, src) -> None:
+    """Rebind every dataclass field of dst to src's arrays, and drop every
+    other attribute: the caches derived from the old arrays
+    (scene._kp_dev, the rays on the device; vg._match_kp_cache and
+    vg._full_tracks_cache, stage 4's endpoints and tracks)."""
+    names = {f.name for f in dataclasses.fields(dst)}
+    for name in names:
+        setattr(dst, name, getattr(src, name))
+    for name in [k for k in vars(dst) if k not in names]:
+        delattr(dst, name)
+
+
+def _resume_into(state, scene: Scene, vg: ViewGraph,
+                 tracks: Tracks | None) -> Tracks | None:
+    """Load a checkpoint's state into the caller's scene and view graph;
+    returns the tracks to go on with."""
+    scene2, vg2, tracks2, _ = state
+    _copy_state_into(scene, scene2)
+    if vg2 is not None:
+        _copy_state_into(vg, vg2)
+    return tracks2 if tracks2 is not None else tracks

@@ -1,10 +1,11 @@
 """Native host-side track engine, built with g++ and loaded with ctypes.
 
 Counterpart of glomap_tpu/native (establish_tracks,
-establish_tracks_consistent, select_tracks), with the port's own copy of
-its C++ source (track_engine.cpp): the union-find track concatenation and
-the greedy track selection of stage 4, O(matches) sequential passes that
-stay on the host as in the reference. The library is compiled at first
+establish_tracks_consistent, select_tracks, connected_components), with
+the port's own copy of its C++ source (track_engine.cpp): the union-find
+track concatenation and the greedy track selection of stage 4, and the
+union-find connected components of the strong clustering (pruning),
+sequential passes that stay on the host as in the reference. The library is compiled at first
 use into build/native/ at the repository root, never next to the source.
 There is no Python fallback: at millions of matches a sequential Python
 union-find would turn a seconds-long stage into a much longer one, so a
@@ -37,6 +38,7 @@ _SIGNATURES = {
                                            _PF64, ctypes.c_double, _P64],
     "glomap_select_tracks": [_I64, _I64, _P64, _P64, _PU8, _P64, _I64, _I64,
                              _I64, _PU8],
+    "glomap_connected_components": [_I64, _I64, _P64, _P64, _P64],
 }
 _lib = None
 
@@ -156,3 +158,17 @@ def select_tracks(num_tracks: int, obs_track: np.ndarray,
         _ptr(track_num_images, _I64), num_images, min_tracks_per_view,
         max_num_tracks, _ptr(sel, _U8))
     return sel.astype(bool)
+
+
+def connected_components(num_nodes: int, ei: np.ndarray,
+                         ej: np.ndarray) -> np.ndarray:
+    """Component label per node over the edges (ei, ej): labels count up
+    from 0 in the order of each component's smallest node, as the JAX
+    package's native union-find numbers them."""
+    ei, ej = _i64(ei), _i64(ej)
+    _check_index("ei", ei, num_nodes)
+    _check_index("ej", ej, num_nodes, len(ei))
+    out = np.empty(num_nodes, dtype=np.int64)
+    get_lib().glomap_connected_components(
+        num_nodes, len(ei), _ptr(ei, _I64), _ptr(ej, _I64), _ptr(out, _I64))
+    return out

@@ -1,8 +1,7 @@
 // Native host-side track engine: union-find concatenation + greedy
 // coverage selection.
 //
-// The port's own copy of glomap_tpu/native/track_engine.cpp (without its
-// connected-components entry, which no ported stage calls), the
+// The port's own copy of glomap_tpu/native/track_engine.cpp, the
 // counterpart of the reference's C++ track engine
 // (glomap/controllers/track_establishment.cc + colmap UnionFind): the
 // O(total matches) passes stay native on the host, operating on dense
@@ -245,6 +244,32 @@ int64_t glomap_select_tracks(int64_t num_tracks, int64_t num_obs,
     if (num_selected > max_num_tracks) break;
   }
   return num_selected;
+}
+
+// Connected components over an edge list (used for view-graph components
+// and strong-cluster analysis). Writes component label per node.
+int64_t glomap_connected_components(int64_t num_nodes, int64_t num_edges,
+                                    const int64_t* ei, const int64_t* ej,
+                                    int64_t* label_out) {
+  std::vector<int64_t> parent(num_nodes);
+  std::iota(parent.begin(), parent.end(), 0);
+  for (int64_t e = 0; e < num_edges; ++e) {
+    int64_t a = find_root(parent.data(), ei[e]);
+    int64_t b = find_root(parent.data(), ej[e]);
+    if (a == b) continue;
+    if (a < b)
+      parent[b] = a;
+    else
+      parent[a] = b;
+  }
+  std::vector<int64_t> root_to_label(num_nodes, -1);
+  int64_t n_comp = 0;
+  for (int64_t i = 0; i < num_nodes; ++i) {
+    int64_t r = find_root(parent.data(), i);
+    if (root_to_label[r] < 0) root_to_label[r] = n_comp++;
+    label_out[i] = root_to_label[r];
+  }
+  return n_comp;
 }
 
 }  // extern "C"

@@ -7,7 +7,8 @@
   running on the CPU.
 * A kernel whose build fails raises; its CUDA launch never hands back
   the plain version's result. The native track engine's loader raises
-  when g++ fails: it has no Python fallback.
+  when g++ fails, for the track engine and for the connected components
+  of the strong clustering alike: it has no Python fallback.
 """
 
 import ast
@@ -204,10 +205,8 @@ def test_wrapper_takes_kernel_path_off_cpu(broken_build, case):
         wrapper(*meta)
 
 
-@pytest.mark.parametrize("fault", ["compile-error", "no-compiler"])
-def test_native_build_failure_raises(monkeypatch, tmp_path, fault):
-    """The track engine is built by g++ at first use; when that fails the
-    loader raises (no Python fallback) and leaves no library behind."""
+def _break_native_build(monkeypatch, tmp_path, fault):
+    """No library loaded yet, builds go to tmp_path, and g++ fails."""
     from glomap_tpu_torch import native
     monkeypatch.setattr(native, "_lib", None)
     monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "native")
@@ -216,6 +215,26 @@ def test_native_build_failure_raises(monkeypatch, tmp_path, fault):
                             native.CXX_FLAGS + ["-fno-such-option"])
     else:
         monkeypatch.setattr(native, "CXX", str(tmp_path / "no-such-g++"))
+    return native
+
+
+@pytest.mark.parametrize("fault", ["compile-error", "no-compiler"])
+def test_native_connected_components_build_failure_raises(
+        monkeypatch, tmp_path, fault):
+    """The strong clustering's connected components (pruning) come from
+    the same library: a failed build raises, there is no scipy path."""
+    native = _break_native_build(monkeypatch, tmp_path, fault)
+    with pytest.raises(RuntimeError, match="g\\+\\+"):
+        native.connected_components(4, np.array([0, 2]), np.array([1, 3]))
+    assert native._lib is None
+    assert not list((tmp_path / "native").glob("*.so*"))
+
+
+@pytest.mark.parametrize("fault", ["compile-error", "no-compiler"])
+def test_native_build_failure_raises(monkeypatch, tmp_path, fault):
+    """The track engine is built by g++ at first use; when that fails the
+    loader raises (no Python fallback) and leaves no library behind."""
+    native = _break_native_build(monkeypatch, tmp_path, fault)
     with pytest.raises(RuntimeError, match="g\\+\\+"):
         native.establish_tracks(4, np.array([0, 2]), np.array([1, 3]))
     assert native._lib is None

@@ -1,28 +1,29 @@
-"""Stages 4 -> 5 -> 6 of the mapper composed in glomap_tpu_torch against
-the JAX package's GlobalMapper, both on the CPU in f64.
+"""Stages 4 -> 5 -> 6 of the mapper in glomap_tpu_torch's GlobalMapper
+against the JAX package's GlobalMapper, both on the CPU in f64.
 
 One 15-frame scene of the JAX generator (0.5 px noise, 10% outlier
 matches masked by the JAX inlier sweep) crosses to the port as numpy
-arrays. The JAX side is GlobalMapper.solve with every stage but 4, 5 and 6
-skipped (global_mapper.py:175-267, then the deregistration at :336); the
-port's side is chip_smoke.py's composition of the same calls (stage_4,
-stage_5, stage_6), which the card runs at full size. Both run one BA
-round (num_iteration_bundle_adjustment = 1) to keep the test short. The
-frame centers must agree to 1e-6 of the scene's extent, and both must
-keep the same observations.
+arrays. Both sides run GlobalMapper.solve with every stage but 4, 5 and 6
+skipped (global_mapper.py:175-267, then the deregistration at :336): the
+controller whose stage code chip_smoke.py drives at full size on the
+card. Both run one BA round (num_iteration_bundle_adjustment = 1) to keep
+the test short. The frame centers must agree to 1e-6 of the scene's
+extent, and both must keep the same observations.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from glomap_tpu.config import GlobalMapperOptions
+from glomap_tpu import config as jcfg
 from glomap_tpu.controllers.global_mapper import GlobalMapper
 from glomap_tpu.processors.pair_inliers import image_pairs_inlier_count
 from glomap_tpu.processors.undistortion import undistort_images
 from glomap_tpu.utils.synthetic import SyntheticOptions, synthesize_dataset
 
 import chip_smoke
+from glomap_tpu_torch import config as tcfg
+from glomap_tpu_torch.controllers import global_mapper as tgm
 from glomap_tpu_torch.math.rotation import pose_center
 from glomap_tpu_torch.utils.carry import scene_from_jax, view_graph_from_jax
 
@@ -38,18 +39,20 @@ def both():
     image_pairs_inlier_count(scene, vg)
     t_scene, t_vg = scene_from_jax(scene), view_graph_from_jax(vg)
 
-    opts = GlobalMapperOptions(
-        skip_preprocessing=True, skip_view_graph_calibration=True,
-        skip_relative_pose_estimation=True, skip_rotation_averaging=True,
-        skip_retriangulation=True, num_iteration_bundle_adjustment=1)
-    j_tracks = GlobalMapper(opts).solve(scene, vg)
+    def opts(cfg):
+        return cfg.GlobalMapperOptions(
+            skip_preprocessing=True, skip_view_graph_calibration=True,
+            skip_relative_pose_estimation=True, skip_rotation_averaging=True,
+            skip_retriangulation=True, num_iteration_bundle_adjustment=1)
+    j_tracks = GlobalMapper(opts(jcfg)).solve(scene, vg)
     assert j_tracks is not None
 
-    t_tracks, s4 = chip_smoke.stage_4(t_scene, t_vg)
-    s5 = chip_smoke.stage_5(t_scene, t_vg, t_tracks, "cpu", torch.float64)
-    s6 = chip_smoke.stage_6(t_scene, t_tracks, "cpu", torch.float64,
-                            rounds=1)
-    return (scene, j_tracks), (t_scene, t_tracks), (s4, s5, s6), gt
+    mapper = tgm.GlobalMapper(opts(tcfg), device="cpu", dtype=torch.float64)
+    t_tracks = mapper.solve(t_scene, t_vg)
+    assert t_tracks is not None
+    reports = tuple(mapper.reports[n] for n in (
+        "track establishment", "global positioning", "bundle adjustment"))
+    return (scene, j_tracks), (t_scene, t_tracks), reports, gt
 
 
 def _valid_obs(tracks):
