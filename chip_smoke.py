@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's global bundle adjustment, stage-2 inlier
-sweep, stages 4-6 of the mapper and its mapper_resume command on one
+sweep, stages 4-7 of the mapper and its mapper_resume command on one
 NVIDIA card, check every kernel against its plain PyTorch version, and
 time it.
 
@@ -96,12 +96,30 @@ Phases (each raises on failure; the exit code is then non-zero):
               registered, its points finite, and its image centers,
               Sim3-aligned and matched by image name, within 0.15 of the
               generator's.
+7. stage 7  -- retriangulation on phase 5's result after stage 6 (copied
+              before phase 6; 100 frames, 224,824 keypoints, ~2,490
+              tracks, the 10.2M-match view graph), through the
+              controller's stage method (stage_7): every B2 and B3 input
+              of its triangulation calls (the 3-column hypothesis gather,
+              the 2-row support sums, the 9-row normal equations) and of
+              one LM iteration of its first refinement BA is recorded,
+              checked and timed like phase 2 (B2 bit for bit; B3 within
+              _sum_bound and bit for bit on small integers); the counted
+              run must launch B1-B6; a second run must agree bit for bit;
+              retriangulate_tracks on the card must match the CPU's plain
+              f32 path within the measured RETRI_* bounds; the centers
+              must lie within 0.15 of the generator's and valid
+              observations explain at least 98% of the keypoints (the
+              reference's oracle). The batched 3x3 solves are timed, a
+              retriangulate_tracks call is profiled, and
+              GlobalMapper.solve runs stages 4-7 on phase 4's filtered
+              scene (stages 0-3 skipped: the generator's rotations).
 
 Output: the {"kernels": [...]} line (seven kernels; each path's numbers
 under "paths"), a {"slice": ...} line, an {"inlier_sweep": ...} line, a
-{"stages_4_6": ...} line, a {"mapper_resume": ...} line, the card's name
-and power limit, and last {"ok": true, "device": {...}}. Without a CUDA
-device it prints no result and exits 1.
+{"stages_4_6": ...} line, a {"mapper_resume": ...} line, a {"stage_7":
+...} line, the card's name and power limit, and last {"ok": true,
+"device": {...}}. Without a CUDA device it prints no result and exits 1.
 """
 
 from __future__ import annotations
@@ -121,8 +139,10 @@ from glomap_tpu_torch import cli
 from glomap_tpu_torch.config import (BundleAdjusterOptions,
                                      GlobalPositionerOptions,
                                      InlierThresholds)
+from glomap_tpu_torch.config import GlobalMapperOptions
 from glomap_tpu_torch.controllers.global_mapper import (
     GlobalMapper, deregister_unsupported)
+from glomap_tpu_torch.controllers.retriangulation import retriangulate_tracks
 from glomap_tpu_torch.estimators import global_positioning as gpm
 from glomap_tpu_torch.estimators.bundle_adjustment import (
     _solve_ba, solve_bundle_adjustment)
@@ -131,6 +151,7 @@ from glomap_tpu_torch.io.convert import scene_to_model, write_reconstruction
 from glomap_tpu_torch.math.rotation import pose_center
 from glomap_tpu_torch.math.sim3 import apply_sim3, umeyama_alignment
 from glomap_tpu_torch.ops import _build, kernels
+from glomap_tpu_torch.ops import triangulation as tri
 from glomap_tpu_torch.ops import camera_models as cm
 from glomap_tpu_torch.processors import pair_inliers, relpose_filter
 from glomap_tpu_torch.processors.undistortion import undistort_images
@@ -235,6 +256,24 @@ GP_COST_RTOL = 1e-4
 # the dummy segment of the offset check: a length that is no multiple of
 # 32 or of either chunk length, so every CSR entry behind it moves
 DUMMY_OBS = 1237
+# the reference's observation-recovery oracle (global_mapper_test.cc:
+# 213-217, tests/test_global_mapper.py): after stage 7, valid observations
+# explain at least this share of the keypoints
+KEYPOINT_ORACLE = 0.98
+# retriangulate_tracks on the card against the CPU's plain f32 path from
+# the same input (phase 7): the share of valid (track, keypoint) keys in
+# one and not the other, and the largest point difference of the tracks
+# alike in both over the extent of the frame centers. The sources differ
+# in the order of the 2-row and 9-row sums (B3's chunks against
+# index_add_) and in the batched 3x3 solves (cuSOLVER against LAPACK);
+# the supports are integer sums, exact in any order. A measured bound,
+# not a derived one: on an NVIDIA H100 80GB HBM3 (700 W) 0 of 224,824
+# keys differed and the points 9.06e-8 of the extent; both sides are
+# deterministic. The bounds leave 224 keys and 11x on the points.
+RETRI_KEYS_SHARE = 1e-3
+RETRI_POINT_REL = 1e-6
+# the torch.linalg calls of midpoint_triangulate, by profiler op name
+SOLVER_OPS = ("aten::linalg_solve_ex", "aten::linalg_eigvalsh")
 # phase 6's models and checkpoints (under build/, which git ignores)
 MAPPER_RESUME_DIR = Path(__file__).resolve().parent / "build" / "mapper_resume"
 MODEL_FILES = ("cameras.bin", "images.bin", "points3D.bin")
@@ -1388,6 +1427,264 @@ def mapper_resume_phase(scene, tracks, gt_centers, dev, card):
         "resumed_from": "stage_05.npz", "card": card}
     return report, cases, launches
 
+# ----------------------------------------------------------------------------
+# phase 7: stage 7 (retriangulation) on the stage scene after stage 6
+# ----------------------------------------------------------------------------
+
+
+def _track_names(scene, tracks):
+    """(name (T,), keys): each track named by the smallest keypoint of its
+    valid observations (track ids renumber freely between two runs), and
+    the sorted (name, keypoint) keys of the valid observations."""
+    ok = tracks.obs_valid & tracks.valid[tracks.obs_track]
+    kp = (scene.kp_offset[tracks.obs_image[ok]]
+          + tracks.obs_feature[ok]).astype(np.int64)
+    tr = tracks.obs_track[ok]
+    name = np.full(tracks.num_tracks, np.iinfo(np.int64).max)
+    np.minimum.at(name, tr, kp)
+    return name, np.unique(name[tr] * np.int64(scene.num_keypoints) + kp)
+
+
+def compare_track_sets(scene, card, cpu) -> dict:
+    """Two track sets of one scene: the valid (track, keypoint) keys in
+    one and not the other, and over the tracks whose valid keypoints are
+    the same in both, the largest point difference relative to the extent
+    of the registered frame centers."""
+    (na, ka), (nb, kb) = _track_names(scene, card), _track_names(scene, cpu)
+    differ = np.setxor1d(ka, kb, assume_unique=True)
+    K = np.int64(scene.num_keypoints)
+    # a track is the same in both when no differing key carries its name
+    bad = np.unique(differ // K)
+    same = np.setdiff1d(np.intersect1d(na, nb), bad)
+    same = same[same != np.iinfo(np.int64).max]
+    ia = np.searchsorted(np.sort(na), same)
+    ib = np.searchsorted(np.sort(nb), same)
+    xa = card.xyz[np.argsort(na)[ia]]
+    xb = cpu.xyz[np.argsort(nb)[ib]]
+    c = scene.frame_centers()[scene.frame_registered]
+    extent = float(np.linalg.norm(c.max(0) - c.min(0)))
+    return {"tracks": [card.num_tracks, cpu.num_tracks],
+            "valid_keys": [len(ka), len(kb)], "keys_differ": len(differ),
+            "keys_differ_share": len(differ) / max(len(kb), 1),
+            "same_tracks": len(same),
+            "point_max_diff_over_extent": float(
+                np.abs(xa - xb).max() / extent) if len(same) else 0.0}
+
+
+def keypoint_share(scene, tracks) -> float:
+    """The share of the keypoints a valid observation explains (the
+    reference's oracle counts observations, global_mapper_test.cc:213)."""
+    return float((tracks.obs_valid & tracks.valid[tracks.obs_track]).sum()
+                 / scene.num_keypoints)
+
+
+def stage_7(scene, vg, tracks, device):
+    """The controller's stage 7 on copies: (scene, tracks, report)."""
+    sc, tr = scene.copy(), tracks.copy()
+    mapper = GlobalMapper(device=device)
+    out = mapper.retriangulation(sc, vg, tr)
+    if out is None:
+        raise AssertionError("stage 7: a refinement BA failed")
+    return sc, out, mapper.reports["retriangulation"]
+
+
+def _events_ms(fn, reps: int = 10) -> float:
+    """Device ms per call of fn by CUDA events (eigvalsh reads back its
+    convergence info, so it cannot be captured in a graph)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def solver_library_ms(cases) -> dict:
+    """The batched 3x3 library calls of midpoint_triangulate (solve_ex,
+    eigvalsh) on the normal matrices of each recorded 9-row sum."""
+    out = []
+    for (name, *_), (args, _) in cases.items():
+        if name != "rowsum" or args[0].shape[0] != 9:
+            continue
+        s = kernels.rowsum(*args)
+        A = s[:, list(tri._SYM)].reshape(-1, 3, 3).contiguous()
+        rhs = s[:, 6:9, None].contiguous()
+        out.append({"tracks": A.shape[0],
+                    "solve_ex_ms": _events_ms(
+                        lambda: torch.linalg.solve_ex(A, rhs)),
+                    "eigvalsh_ms": _events_ms(
+                        lambda: torch.linalg.eigvalsh(A))})
+    return out
+
+
+def profile_retriangulation(scene, vg, dev) -> dict:
+    """retriangulate_tracks once under torch.profiler: its device time,
+    the device time of the batched 3x3 solves (the kernels under the
+    solve_ex and eigvalsh ops), and the device's busy share of the wall
+    time."""
+    from torch.autograd import DeviceType
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        retriangulate_tracks(scene.copy(), vg, None, device=dev)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev_ms = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            dev_ms[e.name] = dev_ms.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3
+    total = sum(dev_ms.values())
+    solver = {e.key: getattr(e, "device_time_total",
+                             getattr(e, "cuda_time_total", 0.0)) / 1e3
+              for e in prof.key_averages() if e.key in SOLVER_OPS}
+    top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:8]
+    if not total:
+        return {"device_ms": "not measured", "wall_ms": wall_ms}
+    return {"device_ms": total, "wall_ms": wall_ms,
+            "device_busy_share": total / wall_ms,
+            "solver_ops_ms": solver,
+            "solver_ops_share_of_device": sum(solver.values()) / total,
+            "top_device_ms": [{"name": n[:80], "ms": ms} for n, ms in top]}
+
+
+def retriangulation_phase(scene, tracks, vg, scene_f, gt_centers, dev):
+    """Phase 7: (report, the kernel inputs of stage 7's triangulation calls
+    and of one LM iteration of its first refinement BA, the launches of
+    the counted run). `scene` and `tracks` are stage 6's result, scene_f
+    and vg phase 4's filtered scene (the generator's poses)."""
+    t_phase = time.perf_counter()
+    valid6 = int((tracks.obs_valid & tracks.valid[tracks.obs_track]).sum())
+    # every kernel input of the triangulation calls, and of one LM
+    # iteration of the first refinement BA from their result
+    sc0 = scene.copy()
+    retri = {}
+    cases = record_cases(lambda: retri.update(tracks=retriangulate_tracks(
+        sc0, vg, None, device=dev)))
+    cases.update(record_cases(lambda: solve_bundle_adjustment(
+        sc0, retri["tracks"].copy(), BundleAdjusterOptions(
+            max_num_iterations=1), device=dev)))
+    del sc0, retri
+
+    # stage 7 twice from the same state, the first counted
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    sc, tr, rep = stage_7(scene, vg, tracks, dev)
+    stage_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    if not all(launches[COUNTER.get(n, n)] > 0 for n in BA_KERNELS):
+        raise AssertionError(f"stage 7: a kernel was not launched: "
+                             f"{launches}")
+    t0 = time.perf_counter()
+    sc2, tr2, _ = stage_7(scene, vg, tracks, dev)
+    second_s = time.perf_counter() - t0
+    if not all(np.array_equal(a, b) for a, b in zip(
+            _state(sc, tr) + (sc.frame_quat, tr.obs_track, tr.obs_image,
+                              tr.obs_feature),
+            _state(sc2, tr2) + (sc2.frame_quat, tr2.obs_track,
+                                tr2.obs_image, tr2.obs_feature))):
+        raise AssertionError("stage 7: two runs on the card differ")
+    del sc2, tr2
+
+    # retriangulate_tracks alone: the card against the CPU's plain f32 path
+    t0 = time.perf_counter()
+    card = retriangulate_tracks(scene.copy(), vg, None, device=dev)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = retriangulate_tracks(scene.copy(), vg, None, device="cpu",
+                               dtype=torch.float32)
+    cpu_s = time.perf_counter() - t0
+    vs_cpu = compare_track_sets(scene, card, cpu)
+    vs_cpu.update(card_s=card_s, cpu_f32_s=cpu_s,
+                  bound_keys_share=RETRI_KEYS_SHARE,
+                  bound_point_over_extent=RETRI_POINT_REL)
+    if RETRI_KEYS_SHARE is not None and not (
+            vs_cpu["keys_differ_share"] <= RETRI_KEYS_SHARE
+            and vs_cpu["point_max_diff_over_extent"] <= RETRI_POINT_REL):
+        raise AssertionError(f"retriangulate_tracks card vs CPU f32: "
+                             f"{vs_cpu}")
+    del card, cpu
+
+    # the oracles
+    err = center_errors(sc, gt_centers)
+    share = keypoint_share(sc, tr)
+    if not (err.max() < GP_CENTER_BOUND and share >= KEYPOINT_ORACLE
+            and np.isfinite(tr.xyz).all()):
+        raise AssertionError(f"stage 7: center error {err.max()} (bound "
+                             f"{GP_CENTER_BOUND}), keypoint share {share} "
+                             f"(oracle {KEYPOINT_ORACLE}), or non-finite "
+                             "points")
+
+    # the user's entry point: stages 4-7 through GlobalMapper.solve on
+    # phase 4's filtered scene, the generator's rotations for stages 0-3
+    opt = GlobalMapperOptions(
+        skip_preprocessing=True, skip_view_graph_calibration=True,
+        skip_relative_pose_estimation=True, skip_rotation_averaging=True)
+    solver = GlobalMapper(opt, device=dev)
+    sc_s = scene_f.copy()
+    t0 = time.perf_counter()
+    out = solver.solve(sc_s, vg.copy())
+    solve_s = time.perf_counter() - t0
+    if out is None:
+        raise AssertionError("GlobalMapper.solve (stages 4-7) failed")
+    err_s = center_errors(sc_s, gt_centers)
+    share_s = keypoint_share(sc_s, out)
+    if not (err_s.max() < GP_CENTER_BOUND and share_s >= KEYPOINT_ORACLE):
+        raise AssertionError(f"GlobalMapper.solve: center error "
+                             f"{err_s.max()}, keypoint share {share_s}")
+    solve_report = solver.reports["retriangulation"]
+
+    (it,) = rep["iterations"]
+    report = {
+        "problem": (f"stage 6's result on the stage scene: "
+                    f"{scene.num_frames} frames, {vg.num_matches} matches, "
+                    f"{scene.num_keypoints} keypoints, {valid6} valid "
+                    f"observations, f32"),
+        "stage7_seconds": [stage_s, second_s],
+        "stage7_report_seconds": rep["seconds"],
+        "generations": it["generations"],
+        "completed_in_place": it["completed_in_place"],
+        "completed_from_matches": it["completed_from_matches"],
+        "merged": it["merged"], "tracks": tr.num_tracks,
+        "valid_observations": int((tr.obs_valid
+                                   & tr.valid[tr.obs_track]).sum()),
+        "retriangulate_seconds": it["seconds"],
+        "refinement_rounds": [
+            {"ba_lm_iters": r["ba"]["lm_iters"],
+             "ba_seconds": r["ba"]["seconds"],
+             "completed": r["completed"], "merged": r["merged"],
+             "filtered": r["filtered"], "changed": r.get("changed")}
+            for r in it["rounds"]],
+        "final_removed": rep["final_removed"],
+        "keypoint_share": share, "keypoint_oracle": KEYPOINT_ORACLE,
+        "stage6_keypoint_share": valid6 / scene.num_keypoints,
+        "center_error": {"max": float(err.max()),
+                         "median": float(np.median(err))},
+        "center_bound": GP_CENTER_BOUND, "bitwise_reproducible": True,
+        "card_vs_cpu_f32": vs_cpu,
+        "solver_library": solver_library_ms(cases),
+        "profile": profile_retriangulation(scene, vg, dev),
+        "launches": launches,
+        "solve_stages_4_7": {
+            "seconds": solve_s, "stages_s": dict(solver.timer.stages),
+            "retriangulation": {
+                "generations": solve_report["iterations"][0]["generations"],
+                "merged": solve_report["iterations"][0]["merged"],
+                "rounds": len(solve_report["iterations"][0]["rounds"]),
+                "ba_lm_iters": [r["ba"]["lm_iters"] for r in
+                                solve_report["iterations"][0]["rounds"]]},
+            "keypoint_share": share_s,
+            "center_error_max": float(err_s.max())}}
+    report["phase_seconds"] = time.perf_counter() - t_phase
+    return report, cases, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1559,6 +1856,8 @@ def main() -> int:
     stages, per_stage, stage_launches, final, gt_centers = stages_phase(
         scene_f, vg_f, dev, gen, peak_bw, peak_flops)
 
+    stage7_input = (final[0].copy(), final[1].copy())
+
     # phase 6: mapper_resume through the CLI on stage 6's result
     resume, resume_cases, resume_launches = mapper_resume_phase(
         *final, gt_centers, dev, card)
@@ -1569,6 +1868,17 @@ def main() -> int:
         per_stage["mapper_resume"][name][1].append(calls)
     stage_launches["mapper_resume"] = resume_launches
     del resume_cases
+
+    # phase 7: stage 7 on stage 6's result (copied before phase 6)
+    retri, retri_cases, retri_launches = retriangulation_phase(
+        *stage7_input, vg_f, scene_f, gt_centers, dev)
+    per_stage["retriangulation"] = {n: ([], []) for n in BA_KERNELS}
+    for (name, *_), (args, calls) in retri_cases.items():
+        res = measure_case(name, args, gen, peak_bw, peak_flops)
+        per_stage["retriangulation"][name][0].append(res)
+        per_stage["retriangulation"][name][1].append(calls)
+    stage_launches["retriangulation"] = retri_launches
+    del retri_cases
 
     paths = [("ba", per_kernel, launches),
              ("inlier_sweep", per_sweep, sweep_launches)] + \
@@ -1612,6 +1922,7 @@ def main() -> int:
         "card": card}}))
     print(json.dumps({"stages_4_6": {**stages, "card": card}}))
     print(json.dumps({"mapper_resume": resume}))
+    print(json.dumps({"stage_7": {**retri, "card": card}}))
     print(card)
     # the run used one card
     print(json.dumps({"ok": True, "device": {

@@ -5,13 +5,15 @@ itself the counterpart of glomap/controllers/global_mapper.{h,cc}
 (GlobalMapper::Solve, :19-361). The port runs stage 4 (track
 establishment), stage 5 (global positioning and its filters), stage 6
 (iterated staged bundle adjustment with progressive filtering and the
-early exit under 0.1% of the tracks filtered), the deregistration of
-frames left without observations, and stage 8 (pruning), with the same
-thresholds and budgets, and stage-boundary checkpoints: with
-options.checkpoint_dir set, stage_NN.npz holds the exact state after stage
-NN, and the next run resumes at NN + 1.
+early exit under 0.1% of the tracks filtered), stage 7 (retriangulation
+with its BA refinement rounds and their exit under 0.05% of the valid
+observations changed), the deregistration of frames left without
+observations, and stage 8 (pruning), with the same thresholds and
+budgets, and stage-boundary checkpoints: with options.checkpoint_dir set,
+stage_NN.npz holds the exact state after stage NN, and the next run
+resumes at NN + 1.
 
-Stages 0-3 and 7 are not ported yet. Options that would run one raise
+Stages 0-3 are not ported yet. Options that would run one raise
 NotImplementedError before any stage runs, naming the ROADMAP item.
 """
 
@@ -28,6 +30,8 @@ import torch
 
 from glomap_tpu_torch.config import GlobalMapperOptions
 from glomap_tpu_torch.controllers import track_establishment as te
+from glomap_tpu_torch.controllers.retriangulation import (
+    merge_tracks, retriangulate_tracks)
 from glomap_tpu_torch.device import resolve_device
 from glomap_tpu_torch.estimators import global_positioning as gpm
 from glomap_tpu_torch.estimators.bundle_adjustment import (
@@ -49,8 +53,11 @@ UNPORTED_STAGES = (
     (1, "skip_view_graph_calibration", "view graph calibration", "A10"),
     (2, "skip_relative_pose_estimation", "relative pose estimation", "A10"),
     (3, "skip_rotation_averaging", "rotation averaging", "A9"),
-    (7, "skip_retriangulation", "retriangulation", "A8"),
 )
+# stage 7's refinement rounds (colmap ba_global_max_refinements) and their
+# exit: the net change of the valid observations under this share
+RETRIANGULATION_ROUNDS = 5
+RETRIANGULATION_CHANGE = 5e-4
 
 
 class GlobalMapper:
@@ -87,6 +94,8 @@ class GlobalMapper:
                     f"{item}); set {flag}")
         if state is not None:
             tracks = _resume_into(state, scene, view_graph, tracks)
+        if start_stage <= 7 and not opt.skip_retriangulation:
+            _require_matches(view_graph)
 
         def ckpt(idx):
             if opt.checkpoint_dir:
@@ -117,7 +126,14 @@ class GlobalMapper:
                 if not self.bundle_adjustment(scene, tracks):
                     return None
         ckpt(6)
-        ckpt(7)  # stage 7 (retriangulation) is skipped (checked above)
+
+        # 7. Retriangulation
+        if start_stage <= 7 and not opt.skip_retriangulation:
+            with self.timer.stage("retriangulation"):
+                tracks = self.retriangulation(scene, view_graph, tracks)
+            if tracks is None:
+                return None
+        ckpt(7)
 
         # frames that end with no valid observation carry no geometric
         # support: drop them from the output instead of writing a junk pose
@@ -246,6 +262,99 @@ class GlobalMapper:
             "seconds": device_clock(dev) - t0, "ba": ba,
             "progressive_obs_removed": progressive, "final_removed": final}
         return True
+
+    def retriangulation(self, scene: Scene, vg: ViewGraph,
+                        tracks: Tracks) -> Tracks | None:
+        """Stage 7: each of num_iteration_retriangulation iterations
+        rebuilds the tracks from every inlier match and triangulates them
+        (controllers/retriangulation.py), then runs up to
+        RETRIANGULATION_ROUNDS refinement rounds (colmap's
+        ba_global_max_refinements loop, track_retriangulation.cc:99-122):
+        BA, the ray refresh, completion, merging and the reprojection
+        filter, until the net change of the valid observations falls under
+        RETRIANGULATION_CHANGE. Then normalization and the final filters.
+        Returns the new tracks (None when a BA fails); `tracks`, the
+        previous set, is not read."""
+        opt, dev = self.options, self.device
+        thr, tri = opt.inlier_thresholds, opt.opt_triangulator
+        _require_matches(vg)
+        t0 = device_clock(dev)
+        iterations = []
+        for _ in range(opt.num_iteration_retriangulation):
+            retri = {}
+            t1 = device_clock(dev)
+            tracks = retriangulate_tracks(scene, vg, tracks, tri, device=dev,
+                                          dtype=self.dtype, stats=retri)
+            retri["seconds"] = device_clock(dev) - t1
+            rounds, prev_keys = [], None
+            for _ in range(RETRIANGULATION_ROUNDS):
+                prev_cam_params = scene.cam_params.copy()
+                ba = {}
+                t1 = device_clock(dev)
+                if not solve_bundle_adjustment(scene, tracks, opt.opt_ba,
+                                               dtype=self.dtype, device=dev,
+                                               stats=ba):
+                    return None
+                ba["seconds"] = device_clock(dev) - t1
+                # BA moved the intrinsics: re-lift the rays before the
+                # complete, merge and filter passes (global_mapper.cc:
+                # 237-238)
+                _refresh_rays(scene, prev_cam_params, dev)
+                num_obs = max(int(tracks.obs_valid.sum()), 1)
+                rnd = {"ba": ba,
+                       "completed": tf.complete_tracks(
+                           scene, tracks, tri.tri_complete_max_reproj_error),
+                       "merged": merge_tracks(
+                           scene, vg, tracks, tri.tri_merge_max_reproj_error),
+                       "filtered": tf.filter_tracks_by_reprojection(
+                           scene, tracks, thr.max_reprojection_error)}
+                rounds.append(rnd)
+                # the NET change of the round, as the set of valid (track,
+                # keypoint) keys: the reference counts gross complete,
+                # merge and filter events, which double-counts the
+                # observations that oscillate between the loose completion
+                # and the tight filter every round, and never converges
+                keys = _valid_obs_keys(scene, tracks)
+                if prev_keys is not None:
+                    rnd["changed"] = len(np.setxor1d(keys, prev_keys,
+                                                     assume_unique=True))
+                    if rnd["changed"] < RETRIANGULATION_CHANGE * num_obs:
+                        break
+                prev_keys = keys
+            iterations.append({**retri, "rounds": rounds})
+        normalize_reconstruction(scene, tracks)
+        final = {
+            "reprojection_obs": tf.filter_tracks_by_reprojection(
+                scene, tracks, thr.max_reprojection_error),
+            "triangulation_angle_tracks":
+                tf.filter_tracks_by_triangulation_angle(
+                    scene, tracks, thr.min_triangulation_angle)}
+        self.reports["retriangulation"] = {
+            "seconds": device_clock(dev) - t0, "iterations": iterations,
+            "final_removed": final}
+        return tracks
+
+
+def _require_matches(vg: ViewGraph) -> None:
+    """Stage 7 rebuilds the tracks from the view graph's inlier matches:
+    without any it would leave no track, and BA would fail. The JAX
+    package then returns None without a reason (ROADMAP C.7)."""
+    if not (vg.pair_valid[vg.match_pair] & vg.match_inlier).any():
+        raise ValueError(
+            "stage 7 (retriangulation) rebuilds the tracks from the view "
+            "graph's inlier matches, and the view graph has none (a model "
+            "read without its database has no view graph); set "
+            "skip_retriangulation")
+
+
+def _valid_obs_keys(scene: Scene, tracks: Tracks) -> np.ndarray:
+    """The valid observation set as sorted unique (track, keypoint) keys,
+    invariant under the re-sorts of completion and merging."""
+    ok = tracks.obs_valid & tracks.valid[tracks.obs_track]
+    kp = (scene.kp_offset[tracks.obs_image[ok]] +
+          tracks.obs_feature[ok]).astype(np.int64)
+    return np.unique(tracks.obs_track[ok].astype(np.int64) *
+                     np.int64(scene.num_keypoints) + kp)
 
 
 def deregister_unsupported(scene: Scene, tracks: Tracks) -> int:

@@ -42,9 +42,11 @@ def _obs_geometry(scene: Scene, tracks: Tracks):
     return pt_cam, ray, kp
 
 
-def _pixels(scene: Scene, tracks: Tracks, pt_cam: np.ndarray) -> np.ndarray:
-    """Camera-model projection of each observation's point (CPU f64)."""
-    cams = scene.image_camera[tracks.obs_image]
+def image_pixels(scene: Scene, img: np.ndarray,
+                 pt_cam: np.ndarray) -> np.ndarray:
+    """Camera-model projection of camera-frame points pt_cam (N, 3) seen
+    by images img (N,) to pixels (N, 2), on the host (CPU f64)."""
+    cams = scene.image_camera[img]
     return cm.img_from_cam(_t(scene.cam_params[cams]),
                            torch.from_numpy(scene.cam_kind[cams]),
                            _t(pt_cam)).numpy()
@@ -64,8 +66,8 @@ def filter_tracks_by_reprojection(scene: Scene, tracks: Tracks,
         feat = ray[..., :2] / (ray[..., 2:3] + EPS)
         err = np.linalg.norm(proj - feat, axis=-1)
     else:
-        err = np.linalg.norm(_pixels(scene, tracks, pt_cam) - scene.kp_xy[kp],
-                             axis=-1)
+        err = np.linalg.norm(image_pixels(scene, tracks.obs_image, pt_cam)
+                             - scene.kp_xy[kp], axis=-1)
     ok = np.asarray((err < max_reprojection_error) & (z >= EPS))
     bad = tracks.obs_valid & ~ok
     tracks.obs_valid &= ok
@@ -96,8 +98,8 @@ def complete_tracks(scene: Scene, tracks: Tracks,
         return 0
     pt_cam, ray, kp = _obs_geometry(scene, tracks)
     z = pt_cam[..., 2]
-    err = np.linalg.norm(_pixels(scene, tracks, pt_cam) - scene.kp_xy[kp],
-                         axis=-1)
+    err = np.linalg.norm(image_pixels(scene, tracks.obs_image, pt_cam)
+                         - scene.kp_xy[kp], axis=-1)
     recover = cand & (err < max_reproj_px) & (z >= EPS)
     tracks.obs_valid |= recover
     n = int(recover.sum())

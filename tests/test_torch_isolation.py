@@ -6,9 +6,10 @@
 * With device=None and no CUDA, the entry point raises instead of
   running on the CPU.
 * A kernel whose build fails raises; its CUDA launch never hands back
-  the plain version's result. The native track engine's loader raises
-  when g++ fails, for the track engine and for the connected components
-  of the strong clustering alike: it has no Python fallback.
+  the plain version's result, and neither does stage 7's triangulation.
+  The native track engine's loader raises when g++ fails, for the track
+  engine and for the connected components of the strong clustering
+  alike: it has no Python fallback.
 """
 
 import ast
@@ -203,6 +204,41 @@ def test_wrapper_takes_kernel_path_off_cpu(broken_build, case):
         meta.append(a)
     with pytest.raises(_BuildFailed):
         wrapper(*meta)
+
+
+def _triangulation_case(name):
+    """(function, arguments) of stage 7's triangulation on the meta
+    device: its first kernel (B3 for the midpoint, B2 for the RANSAC
+    score) must take the kernel path and raise."""
+    from glomap_tpu_torch.ops import triangulation as ttri
+    g = torch.Generator().manual_seed(0)
+    ids = torch.repeat_interleave(torch.arange(5), torch.tensor(
+        [3, 0, 4, 2, 5]))
+    ax = SegmentAxis.build(ids, 5)
+    ax = SegmentAxis(ax.ids.to("meta"), ax.perm.to("meta"),
+                     ax.offsets.to("meta"), ax.n_seg)
+    dT = torch.nn.functional.normalize(torch.randn((3, 14), generator=g),
+                                       dim=0).to("meta")
+    cT = torch.randn((3, 14), generator=g).to("meta")
+    if name == "midpoint_triangulate":
+        return ttri.midpoint_triangulate, (ax, dT, cT,
+                                           torch.ones(14, device="meta"))
+    t_len = torch.tensor([3, 0, 4, 2, 5])
+    t_start = torch.cumsum(t_len, 0) - t_len
+    return ttri.ransac_triangulate, (ax, dT, cT, t_start.to("meta"),
+                                     t_len.to("meta"), 16, 0.99, 0.017)
+
+
+@pytest.mark.parametrize("name", ["midpoint_triangulate",
+                                  "ransac_triangulate"])
+def test_triangulation_takes_kernel_path_off_cpu(broken_build, name):
+    """Stage 7's triangulation on a tensor that is not on the CPU launches
+    its kernels, and raises with the build: no plain fallback."""
+    fn, args = _triangulation_case(name)
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(_BuildFailed):
+        fn(*args)
+    assert kernels.LAUNCHES == before
 
 
 def _break_native_build(monkeypatch, tmp_path, fault):
