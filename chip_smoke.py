@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's global bundle adjustment, stage-2 inlier
-sweep, stages 4-7 of the mapper and its mapper_resume command on one
-NVIDIA card, check every kernel against its plain PyTorch version, and
-time it.
+sweep, stages 3-7 of the mapper and its mapper_resume and
+rotation_averager commands on one NVIDIA card, check every kernel against
+its plain PyTorch version, and time it.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -115,11 +115,40 @@ Phases (each raises on failure; the exit code is then non-zero):
               GlobalMapper.solve runs stages 4-7 on phase 4's filtered
               scene (stages 0-3 skipped: the generator's rotations).
 
+8. stage 3  -- rotation averaging on phase 4's filtered scene, its
+              relative rotations perturbed by 1 deg of noise and 15%
+              random-rotation outliers (a seeded draw), every frame
+              started at the identity. (a) The controller's stage code
+              (stage_3: two solves, each followed by the rotation filter
+              and the largest component) on the card, counted (B3 must
+              launch; every B2 and B3 input is recorded, then checked and
+              timed like phase 2), a second time bit for bit, and on the
+              CPU's plain path in f32 (within the measured
+              RA_CPU_F32_RAD, the same pairs filtered) and in f64 for
+              scale; pairwise errors against the
+              generator under 2 deg, 1 deg on average. (b) Gravity priors
+              with 30% outliers on 80% of the frames, refine_gravity
+              (within 1e-2 deg of the truth), then the stratified gravity
+              solve (the 1-DoF solve and the full one, both on the
+              projected CG: B2 and B3 must launch): pairwise errors under
+              1.5 deg, the constrained frames on their manifold. (c)
+              `cli.main(["rotation_averager", ...])` on the JAX package's
+              component graph (2,000 frames, ~40,000 edges, 1 deg noise)
+              written by pose_io.write_rel_poses: two runs write the same
+              bytes, sampled pairwise errors under 2 deg. (d)
+              estimate_rotations on the JAX package's city graph (20,000
+              frames, ~1.06M edges, beyond the 12,288-frame dense
+              ceiling: the CG path), counted and recorded: sampled
+              pairwise errors under 3 deg; one Laplacian apply on its
+              axes timed whole and as its B2 and B3 launches alone. (e) GlobalMapper.solve runs
+              stages 3-6 on (a)'s scene: centers within 0.15.
+
 Output: the {"kernels": [...]} line (seven kernels; each path's numbers
 under "paths"), a {"slice": ...} line, an {"inlier_sweep": ...} line, a
 {"stages_4_6": ...} line, a {"mapper_resume": ...} line, a {"stage_7":
-...} line, the card's name and power limit, and last {"ok": true,
-"device": {...}}. Without a CUDA device it prints no result and exits 1.
+...} line, a {"stage_3": ...} line, the card's name and power limit, and
+last {"ok": true, "device": {...}}. Without a CUDA device it prints no
+result and exits 1.
 """
 
 from __future__ import annotations
@@ -143,14 +172,22 @@ from glomap_tpu_torch.config import GlobalMapperOptions
 from glomap_tpu_torch.controllers.global_mapper import (
     GlobalMapper, deregister_unsupported)
 from glomap_tpu_torch.controllers.retriangulation import retriangulate_tracks
+from glomap_tpu_torch.controllers.rotation_averager import (
+    RotationAveragerOptions, solve_rotation_averaging)
 from glomap_tpu_torch.estimators import global_positioning as gpm
 from glomap_tpu_torch.estimators.bundle_adjustment import (
     _solve_ba, solve_bundle_adjustment)
+from glomap_tpu_torch.estimators.gravity_refinement import refine_gravity
+from glomap_tpu_torch.estimators.rotation_averaging import (
+    build_edge_ops, estimate_rotations)
+from glomap_tpu_torch.io import pose_io
 from glomap_tpu_torch.io.colmap_model import read_model
 from glomap_tpu_torch.io.convert import scene_to_model, write_reconstruction
+from glomap_tpu_torch.math import gravity as gravm
+from glomap_tpu_torch.math import rotation as rotm
 from glomap_tpu_torch.math.rotation import pose_center
 from glomap_tpu_torch.math.sim3 import apply_sim3, umeyama_alignment
-from glomap_tpu_torch.ops import _build, kernels
+from glomap_tpu_torch.ops import _build, kernels, linear
 from glomap_tpu_torch.ops import triangulation as tri
 from glomap_tpu_torch.ops import camera_models as cm
 from glomap_tpu_torch.processors import pair_inliers, relpose_filter
@@ -159,6 +196,7 @@ from glomap_tpu_torch.scene import view_graph as vgm
 from glomap_tpu_torch.scene.arrays import Scene, Tracks
 from glomap_tpu_torch.utils.carry import ba_inputs_from_arrays
 from glomap_tpu_torch.utils.profile_sweep import SWEEP_OPTIONS, sweep_problem
+from glomap_tpu_torch.utils.synthetic import synthesize_gravity
 
 BENCH_CACHE = Path(__file__).resolve().parent / ".bench_cache.npz"
 # bench.py's settings: the throughput run forces every LM iteration
@@ -277,6 +315,49 @@ SOLVER_OPS = ("aten::linalg_solve_ex", "aten::linalg_eigvalsh")
 # phase 6's models and checkpoints (under build/, which git ignores)
 MAPPER_RESUME_DIR = Path(__file__).resolve().parent / "build" / "mapper_resume"
 MODEL_FILES = ("cameras.bin", "images.bin", "points3D.bin")
+# phase 8: the kernels of rotation averaging, and its scenes. The stage
+# scene's relative rotations get 1 deg of noise and 15% random-rotation
+# outliers (tests/test_rotation_averaging.py:28-41, :65-75), and its
+# oracle is the reference's: pairwise errors against the generator at
+# most 2 deg, 1 deg on average (rotation_averager_test.cc:305)
+RA_KERNELS = ("gather", "rowsum")
+RA_SEED = 8
+RA_NOISE_DEG, RA_OUTLIERS = 1.0, 0.15
+RA_MAX_DEG, RA_MEAN_DEG = 2.0, 1.0
+# gravity priors: 30% outliers (tests/test_gravity.py:79-99), refined to
+# 1e-2 deg of the truth (rotation_averager_test.cc:404-407); priors on
+# 80% of the frames, so that the pairs whose frames both carry one are
+# under the 95% at which the stratified 1-DoF solve is skipped; pairwise
+# errors under 1.5 deg (rotation_averager_test.cc:354-361)
+GRAVITY_OUTLIERS, GRAVITY_PRIOR_SHARE = 0.3, 0.8
+GRAVITY_REFINED_DEG, GRAVITY_MAX_DEG = 1e-2, 1.5
+# a constrained frame's up axis against its prior after the solve: the f32
+# retractions about the up axis keep it on the manifold to their rounding
+# (the f64 tests hold 1e-5 deg); a frame off it by more has left it
+GRAVITY_MANIFOLD_DEG = 1e-2
+# the JAX package's RA benchmark graphs: its component graph
+# (scripts/bench_components.py:32-48, the dense path) through the
+# rotation_averager command, and its city graph (scripts/ra_quality_ab.py:
+# 177-181, beyond the 12,288-frame dense ceiling: the CG path), with their
+# sampled oracles (ra_quality_ab.py:64-78): the reference's 2 deg for the
+# noise-only component graph and the 3 deg that ra_quality_ab.py:10-11
+# cites for the city graph
+COMPONENT_GRAPH = dict(frames=2000, degree=20, span=30, noise_deg=1.0,
+                       outliers=0.0, seed=3, dedupe=False)
+CITY_GRAPH = dict(frames=20000, degree=80, span=90, noise_deg=1.0,
+                  outliers=0.05, seed=3, dedupe=True)
+COMPONENT_MAX_DEG, CITY_MAX_DEG = 2.0, 3.0
+# stage 3 on the card against the CPU's plain f32 path from the same input
+# (phase 8): the largest rotation between their frame rotations, and no
+# pair filtered differently. The sources differ in the order of B3's sums
+# against index_add_ and in the dense Cholesky (cuSOLVER against LAPACK);
+# the ADMM's and the IRLS's exit tests read those sums, and took the same
+# branches and counts on both. A measured bound, not a derived one: on an
+# NVIDIA H100 80GB HBM3 (700 W) the frames differed by 2.67e-7 rad (the
+# f64 CPU path by 1.97e-7), with the same pairs; both sides are
+# deterministic. The bound leaves 11x.
+RA_CPU_F32_RAD = 3e-6
+RA_DIR = Path(__file__).resolve().parent / "build" / "rotation_averager"
 
 
 def card_line() -> str:
@@ -1685,6 +1766,399 @@ def retriangulation_phase(scene, tracks, vg, scene_f, gt_centers, dev):
     return report, cases, launches
 
 
+# ----------------------------------------------------------------------------
+# phase 8: stage 3 (rotation averaging, gravity priors, the rig bootstrap's
+# controller) and the rotation_averager command
+# ----------------------------------------------------------------------------
+
+
+def perturb_relative_rotations(vg, rng, noise_deg, outlier_ratio):
+    """tests/test_rotation_averaging.py:28-41 on the port's math: noise
+    about random axes on every pair, then random rotations on a share."""
+    n = vg.num_pairs
+    w = np.deg2rad(noise_deg) * rng.standard_normal((n, 3)) / np.sqrt(3)
+    vg.pair_quat = rotm.host(rotm.quat_mul, rotm.host(rotm.so3_exp_quat, w),
+                             vg.pair_quat)
+    idx = rng.choice(n, size=int(round(outlier_ratio * n)), replace=False)
+    q = rng.standard_normal((len(idx), 4))
+    vg.pair_quat[idx] = q / np.linalg.norm(q, axis=-1, keepdims=True)
+
+
+def pairwise_errors_deg(q, q_gt, sample=0, seed=0) -> np.ndarray:
+    """Angles between the estimated and the true relative rotations of
+    every frame pair, or of `sample` random pairs as
+    scripts/ra_quality_ab.py:64-78 draws them."""
+    if sample:
+        rng = np.random.default_rng(seed)
+        ii, jj = rng.integers(0, len(q), sample), rng.integers(0, len(q),
+                                                                 sample)
+        ii, jj = ii[ii != jj], jj[ii != jj]
+    else:
+        ii, jj = np.triu_indices(len(q), k=1)
+
+    def rel(a):
+        return rotm.host(lambda x, y: rotm.quat_mul(x, rotm.quat_conj(y)),
+                         a[ii], a[jj])
+    return np.degrees(rotm.host(rotm.relative_quat_angle_rad, rel(q),
+                                rel(q_gt)))
+
+
+def quat_angle_diff(a, b) -> float:
+    """The largest rotation between unit quaternions a and b (2 |a - b| up
+    to sign; exact to first order)."""
+    s = np.sign(np.sum(a * b, axis=-1, keepdims=True))
+    return float(2 * np.linalg.norm(a - s * b, axis=-1).max())
+
+
+def rotation_graph(frames, degree, span, noise_deg, outliers, seed, dedupe):
+    """The JAX package's sequential-capture rotation graphs on the port's
+    math, draw for draw: (fi, fj, q_rel, q_gt). dedupe=False is
+    scripts/bench_components.py's (edges repeat), True
+    scripts/ra_quality_ab.py's synth_graph."""
+    rng = np.random.default_rng(seed)
+    q_gt = rng.standard_normal((frames, 4))
+    q_gt /= np.linalg.norm(q_gt, axis=1, keepdims=True)
+    fi = np.repeat(np.arange(frames), degree)
+    fj = np.minimum(fi + rng.integers(1, span, size=len(fi)), frames - 1)
+    keep = fi != fj
+    fi, fj = fi[keep], fj[keep]
+    if dedupe:
+        uniq = np.unique(fi * np.int64(frames) + fj)
+        fi, fj = uniq // frames, uniq % frames
+    fi, fj = fi.astype(np.int32), fj.astype(np.int32)
+    q_rel = rotm.host(lambda a, b: rotm.quat_mul(a, rotm.quat_conj(b)),
+                      q_gt[fj], q_gt[fi])
+    w = np.deg2rad(noise_deg) * rng.standard_normal((len(fi), 3))
+    q_rel = rotm.host(rotm.quat_mul, q_rel, rotm.host(rotm.so3_exp_quat, w))
+    if outliers:
+        n_out = int(outliers * len(fi))
+        idx = rng.choice(len(fi), n_out, replace=False)
+        q_out = rng.standard_normal((n_out, 4))
+        q_rel[idx] = q_out / np.linalg.norm(q_out, axis=1, keepdims=True)
+    return fi, fj, q_rel, q_gt
+
+
+def graph_scene(fi, fj, q_rel, frames):
+    """A scene of `frames` trivial frames (image k named frameKKKKK.jpg)
+    and the view graph of the edges, as read_rel_pose would make them."""
+    scene = Scene()
+    pose_io._extend_scene_with_images(
+        scene, [f"frame{k:05d}.jpg" for k in range(frames)])
+    n = len(fi)
+    vg = vgm.ViewGraph(
+        pair_i=fi.copy(), pair_j=fj.copy(), pair_valid=np.ones(n, bool),
+        pair_config=np.full(n, vgm.CONFIG_CALIBRATED, np.int32),
+        pair_quat=q_rel, pair_trans=np.zeros((n, 3)), pair_weight=np.ones(n),
+        pair_num_inliers=np.ones(n, np.int64),
+        pair_match_offset=np.zeros(n + 1, np.int64))
+    return scene, vg
+
+
+def solve_summary(st) -> dict:
+    """The report of one estimate_rotations call: its path and size, the
+    ADMM's branch (the factor's relerr, whether it ran and was kept, its
+    rounds and inner iterations), the sweeps of each phase and the CG
+    iterations per sweep."""
+    if "l1" not in st:
+        return st
+    l1 = st["l1"]
+    out = {k: st[k] for k in ("path", "frames", "edges", "gravity_frames")}
+    if "admm" in l1:
+        out["admm"] = {k: l1["admm"].get(k) for k in (
+            "relerr", "ran", "kept", "outer", "inner", "objective")}
+    out.update(l1_irls_sweeps=l1["l1_irls"]["sweeps"],
+               l1_irls_kept=l1["l1_irls"]["kept"],
+               irls_sweeps=st["irls"]["sweeps"])
+    cg = l1["l1_irls"]["cg_iters"] + st["irls"]["cg_iters"]
+    if cg:
+        out["cg_iters_per_sweep"] = {"mean": float(np.mean(cg)),
+                                     "min": min(cg), "max": max(cg)}
+    return out
+
+
+def stage_3(scene, vg, device, dtype=None):
+    """The controller's stage 3 on copies: (scene, view graph, report)."""
+    sc, g = scene.copy(), vg.copy()
+    mapper = GlobalMapper(device=device, dtype=dtype)
+    if not mapper.rotation_averaging(sc, g):
+        raise AssertionError("stage 3: rotation averaging failed")
+    rep = mapper.reports["rotation averaging"]
+    return sc, g, {"seconds": rep["seconds"], "passes": [
+        {"ok": p["ok"], "seconds": p["seconds"],
+         "filtered_pairs": p["filtered_pairs"],
+         "component_images": p["component_images"],
+         "solves": [solve_summary(s) for s in p["solves"]]}
+        for p in rep["passes"]]}
+
+
+def require_launched(launches, names, what):
+    if not all(launches[COUNTER.get(n, n)] > 0 for n in names):
+        raise AssertionError(f"{what}: a kernel was not launched: "
+                             f"{launches}")
+
+
+def stage_3_on_card(scene, vg, gt_quat, dev) -> tuple:
+    """Phase 8 (a): (report, recorded cases, launches)."""
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    run = {}
+    cases = record_cases(lambda: run.update(out=stage_3(scene, vg, dev)))
+    first_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    require_launched(launches, ("rowsum",), "stage 3")
+    sc, g, rep = run["out"]
+    t0 = time.perf_counter()
+    sc2, g2, _ = stage_3(scene, vg, dev)
+    second_s = time.perf_counter() - t0
+    if not (np.array_equal(sc.frame_quat, sc2.frame_quat)
+            and np.array_equal(g.pair_valid, g2.pair_valid)
+            and np.array_equal(sc.frame_registered, sc2.frame_registered)):
+        raise AssertionError("stage 3: two runs on the card differ")
+    vs_cpu = {}
+    for name, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+        t0 = time.perf_counter()
+        sc_c, g_c, rep_c = stage_3(scene, vg, "cpu", dtype)
+        vs_cpu[name] = {
+            "seconds": time.perf_counter() - t0,
+            "max_rad": quat_angle_diff(sc.frame_quat, sc_c.frame_quat),
+            "pairs_differ": int((g.pair_valid != g_c.pair_valid).sum()),
+            "admm": [[s.get("admm") for s in p["solves"]]
+                     for p in rep_c["passes"]]}
+    vs_cpu["bound_f32_rad"] = RA_CPU_F32_RAD
+    if not (vs_cpu["f32"]["max_rad"] <= RA_CPU_F32_RAD
+            and vs_cpu["f32"]["pairs_differ"] == 0):
+        raise AssertionError(f"stage 3 card vs CPU f32: {vs_cpu['f32']}")
+    reg = sc.frame_registered
+    errs = pairwise_errors_deg(sc.frame_quat[reg], gt_quat[reg])
+    if not (errs.max() < RA_MAX_DEG and errs.mean() < RA_MEAN_DEG):
+        raise AssertionError(f"stage 3: pairwise errors max {errs.max()}, "
+                             f"mean {errs.mean()} deg")
+    return {**rep, "seconds_host": [first_s, second_s],
+            "registered_frames": int(reg.sum()),
+            "pairwise_error_deg": {"max": float(errs.max()),
+                                   "mean": float(errs.mean())},
+            "bitwise_reproducible": True, "card_vs_cpu": vs_cpu,
+            "launches": launches}, cases, launches
+
+
+def gravity_on_card(scene_gt, vg_gt, scene, vg, gt_quat, dev) -> tuple:
+    """Phase 8 (b): priors from the generator's rotations (scene_gt) with
+    30% outliers on 80% of the frames, refined against the generator's
+    relative rotations (vg_gt; tests/test_gravity.py:79-99), then the
+    stratified gravity solve on the perturbed ones (vg; :65-77). (report,
+    recorded cases, launches)."""
+    rng = np.random.default_rng(RA_SEED + 1)
+    truth, noisy = scene_gt.copy(), scene_gt.copy()
+    synthesize_gravity(truth, None, rng)
+    synthesize_gravity(noisy, None, rng, outlier_ratio=GRAVITY_OUTLIERS)
+    sc = scene.copy()
+    sc.frame_has_gravity = rng.uniform(size=sc.num_frames) < \
+        GRAVITY_PRIOR_SHARE
+    sc.frame_gravity = noisy.frame_gravity.copy()
+    has = sc.frame_has_gravity
+    before = gravm.gravity_angle_deg(sc.frame_gravity, truth.frame_gravity)
+    t0 = time.perf_counter()
+    rectified = refine_gravity(sc, vg_gt)
+    refine_s = time.perf_counter() - t0
+    after = gravm.gravity_angle_deg(sc.frame_gravity, truth.frame_gravity)
+    if not after[has].max() < GRAVITY_REFINED_DEG:
+        raise AssertionError(f"gravity refinement: {after[has].max()} deg "
+                             "from the truth")
+    g = vg.copy()
+    stats = []
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    ok = {}
+    cases = record_cases(lambda: ok.update(ok=solve_rotation_averaging(
+        sc, g, RotationAveragerOptions(use_gravity=True), device=dev,
+        stats=stats)))
+    solve_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    if not ok["ok"] or len(stats) != 2:
+        raise AssertionError(f"gravity solve: ok {ok['ok']}, {len(stats)} "
+                             "solves (the stratified one and the full one)")
+    require_launched(launches, RA_KERNELS, "gravity solve")
+    reg = sc.frame_registered
+    errs = pairwise_errors_deg(sc.frame_quat[reg], gt_quat[reg])
+    up = rotm.host(rotm.quat_rotate, sc.frame_quat,
+                   np.tile([0.0, 1.0, 0.0], (sc.num_frames, 1)))
+    manifold = gravm.gravity_angle_deg(up, sc.frame_gravity)[has & reg]
+    if not (errs.max() < GRAVITY_MAX_DEG
+            and manifold.max() < GRAVITY_MANIFOLD_DEG):
+        raise AssertionError(f"gravity solve: pairwise errors max "
+                             f"{errs.max()} deg, {manifold.max()} deg off "
+                             "the gravity manifold")
+    return {"frames_with_priors": int(has.sum()),
+            "outlier_priors": int((before[has] > 10).sum()),
+            "rectified": rectified, "refine_seconds": refine_s,
+            "refined_error_deg_max": float(after[has].max()),
+            "solve_seconds": solve_s,
+            "solves": [solve_summary(s) for s in stats],
+            "pairwise_error_deg": {"max": float(errs.max()),
+                                   "mean": float(errs.mean())},
+            "off_manifold_deg_max": float(manifold.max()),
+            "launches": launches}, cases, launches
+
+
+def rotation_averager_command() -> dict:
+    """Phase 8 (c): the component graph as a rel-pose file, through
+    `cli.main(["rotation_averager", ...])` on the card twice."""
+    fi, fj, q_rel, q_gt = rotation_graph(**COMPONENT_GRAPH)
+    scene, vg = graph_scene(fi, fj, q_rel, COMPONENT_GRAPH["frames"])
+    shutil.rmtree(RA_DIR, ignore_errors=True)
+    RA_DIR.mkdir(parents=True)
+    relpose = RA_DIR / "relpose.txt"
+    pose_io.write_rel_poses(str(relpose), scene, vg)
+    seconds, outs = [], []
+    kernels.reset_launch_counts()
+    for k in range(2):
+        out = RA_DIR / f"rotations_{k}.txt"
+        t0 = time.perf_counter()
+        rc = cli.main(["rotation_averager", "--relpose_path", str(relpose),
+                       "--output_path", str(out)])
+        seconds.append(time.perf_counter() - t0)
+        if rc != 0:
+            raise AssertionError(f"rotation_averager exited with {rc}")
+        if k == 0:
+            launches = dict(kernels.LAUNCHES)
+        outs.append(out.read_bytes())
+    if outs[0] != outs[1]:
+        raise AssertionError("rotation_averager: two runs wrote different "
+                             "bytes")
+    rows = [ln.split() for ln in outs[0].decode().splitlines()]
+    idx = np.array([int(r[0][5:10]) for r in rows])
+    q = np.array([[float(v) for v in r[1:]] for r in rows])
+    errs = pairwise_errors_deg(q, q_gt[idx], sample=2000)
+    if not (len(rows) == COMPONENT_GRAPH["frames"]
+            and errs.max() < COMPONENT_MAX_DEG):
+        raise AssertionError(f"rotation_averager: {len(rows)} rotations, "
+                             f"sampled pairwise error max {errs.max()} deg")
+    return {"graph": {**COMPONENT_GRAPH, "edges": len(fi)},
+            "seconds": seconds, "rotations": len(rows),
+            "pairwise_error_deg_sampled": {"max": float(errs.max()),
+                                           "median": float(np.median(errs))},
+            "bytes_identical": True, "launches": launches}
+
+
+def matvec_split_ms(fi, fj, num_frames, dev) -> dict:
+    """Device ms of one CG Laplacian apply on the graph's axes (seeded
+    weights and vector), of its B2 gather and its B3 sum alone, and of
+    the rest (the elementwise glue, mostly the (3, 2E) weight product);
+    the timing launches are not the path's."""
+    saved = dict(kernels.LAUNCHES)
+    gen = torch.Generator().manual_seed(RA_SEED)
+    edges = build_edge_ops(fi, fj, num_frames, dev, dense=False)
+    E = edges.num_edges
+    w = (torch.rand(E, generator=gen) + 0.5).to(dev)
+    w2 = torch.cat([w, w])
+    x = torch.randn((num_frames, 3), generator=gen).to(dev)
+    keep = torch.ones(num_frames, device=dev)
+    keep[0] = 0.0
+    deg = edges.edge_sums(w[:, None], w[:, None])[:, 0]
+    vals = (w2[None] * edges.gather_dst(x)).contiguous()
+    out = {"matvec_ms": graph_ms(lambda: linear.laplacian_matvec(
+               edges, w2, deg, x, keep)),
+           "b2_ms": graph_ms(lambda: edges.gather_dst(x)),
+           "b3_ms": graph_ms(lambda: kernels.rowsum(vals, edges.axis))}
+    out["glue_ms"] = out["matvec_ms"] - out["b2_ms"] - out["b3_ms"]
+    kernels.LAUNCHES.update(saved)
+    return out
+
+
+def city_graph_on_card(dev) -> tuple:
+    """Phase 8 (d): estimate_rotations beyond the dense ceiling (L1-IRLS
+    and IRLS on the projected CG). (report, recorded cases, launches)."""
+    t0 = time.perf_counter()
+    fi, fj, q_rel, q_gt = rotation_graph(**CITY_GRAPH)
+    scene, vg = graph_scene(fi, fj, q_rel, CITY_GRAPH["frames"])
+    gen_s = time.perf_counter() - t0
+    st = {}
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    ok = {}
+    cases = record_cases(lambda: ok.update(ok=estimate_rotations(
+        scene, vg, device=dev, stats=st)))
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    if not ok["ok"] or st["path"] != "cg":
+        raise AssertionError(f"city graph: ok {ok['ok']}, path "
+                             f"{st.get('path')}")
+    require_launched(launches, RA_KERNELS, "city graph")
+    errs = pairwise_errors_deg(scene.frame_quat, q_gt, sample=2000)
+    if not errs.max() < CITY_MAX_DEG:
+        raise AssertionError(f"city graph: sampled pairwise error max "
+                             f"{errs.max()} deg")
+    summary = solve_summary(st)
+    sweeps = summary["l1_irls_sweeps"] + summary["irls_sweeps"]
+    return {"graph": {**CITY_GRAPH, "edges": len(fi)},
+            "generation_seconds": gen_s, "seconds": seconds,
+            "sweeps_per_s": sweeps / seconds, **summary,
+            "laplacian_apply": matvec_split_ms(fi, fj, CITY_GRAPH["frames"],
+                                               dev),
+            "pairwise_error_deg_sampled": {"max": float(errs.max()),
+                                           "median": float(np.median(errs))},
+            "launches": launches}, cases, launches
+
+
+def rotation_phase(scene_f, vg_f, gt_centers, dev):
+    """Phase 8 on phase 4's filtered scene (the generator's poses): (the
+    stage_3 report, the recorded B2 and B3 inputs of (a), (b) and (d) with
+    their calls, the launches of their counted runs summed)."""
+    t_phase = time.perf_counter()
+    gt_quat = scene_f.frame_quat.copy()
+    scene, vg = scene_f.copy(), vg_f.copy()
+    perturb_relative_rotations(vg, np.random.default_rng(RA_SEED),
+                               RA_NOISE_DEG, RA_OUTLIERS)
+    scene.frame_quat[:] = [1.0, 0.0, 0.0, 0.0]
+
+    a, cases_a, launches_a = stage_3_on_card(scene, vg, gt_quat, dev)
+    print(f"# stage 3: {a['seconds_host']} s, pairwise max "
+          f"{a['pairwise_error_deg']['max']:.3f} deg", file=sys.stderr)
+    b, cases_b, launches_b = gravity_on_card(scene_f, vg_f, scene, vg,
+                                             gt_quat, dev)
+    print(f"# gravity: {b['solve_seconds']:.2f} s, pairwise max "
+          f"{b['pairwise_error_deg']['max']:.3f} deg", file=sys.stderr)
+    c = rotation_averager_command()
+    print(f"# rotation_averager: {c['seconds']} s", file=sys.stderr)
+    d, cases_d, launches_d = city_graph_on_card(dev)
+    print(f"# city graph: {d['seconds']:.2f} s, {d['l1_irls_sweeps']} + "
+          f"{d['irls_sweeps']} sweeps", file=sys.stderr)
+
+    # (e) the mapper from stage 3: stages 3-6, then the deregistration
+    opt = GlobalMapperOptions(
+        skip_preprocessing=True, skip_view_graph_calibration=True,
+        skip_relative_pose_estimation=True, skip_retriangulation=True)
+    solver = GlobalMapper(opt, device=dev)
+    sc_e = scene.copy()
+    t0 = time.perf_counter()
+    out = solver.solve(sc_e, vg.copy())
+    solve_s = time.perf_counter() - t0
+    if out is None:
+        raise AssertionError("GlobalMapper.solve (stages 3-6) failed")
+    err_e = center_errors(sc_e, gt_centers)
+    if not err_e.max() < GP_CENTER_BOUND:
+        raise AssertionError(f"GlobalMapper.solve (stages 3-6): center "
+                             f"error {err_e.max()}")
+
+    # the recorded axes stay alive in the cases, so their ids do not clash
+    cases = {**cases_a, **cases_b, **cases_d}
+    launches = {n: launches_a[n] + launches_b[n] + launches_d[n]
+                for n in launches_a}
+    report = {
+        "problem": (f"phase 4's scene after its filters: "
+                    f"{scene.num_frames} frames, {vg.num_pairs} pairs, "
+                    f"relative rotations with {RA_NOISE_DEG} deg noise "
+                    f"and {RA_OUTLIERS:.0%} outliers, identity start"),
+        "stage3": a, "gravity": b, "rotation_averager": c, "city_graph": d,
+        "solve_stages_3_6": {
+            "seconds": solve_s, "stages_s": dict(solver.timer.stages),
+            "center_error_max": float(err_e.max()),
+            "center_bound": GP_CENTER_BOUND},
+        "launches_a_b_d": launches}
+    report["phase_seconds"] = time.perf_counter() - t_phase
+    return report, cases, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1880,6 +2354,18 @@ def main() -> int:
     stage_launches["retriangulation"] = retri_launches
     del retri_cases
 
+    # phase 8: stage 3, gravity priors, the rotation_averager command and
+    # the CG path beyond the dense ceiling, on phase 4's filtered scene
+    ra, ra_cases, ra_launches = rotation_phase(scene_f, vg_f, gt_centers,
+                                               dev)
+    per_stage["rotation_averaging"] = {n: ([], []) for n in RA_KERNELS}
+    for (name, *_), (args, calls) in ra_cases.items():
+        res = measure_case(name, args, gen, peak_bw, peak_flops)
+        per_stage["rotation_averaging"][name][0].append(res)
+        per_stage["rotation_averaging"][name][1].append(calls)
+    stage_launches["rotation_averaging"] = ra_launches
+    del ra_cases
+
     paths = [("ba", per_kernel, launches),
              ("inlier_sweep", per_sweep, sweep_launches)] + \
         [(p, per_stage[p], stage_launches[p]) for p in per_stage]
@@ -1923,6 +2409,7 @@ def main() -> int:
     print(json.dumps({"stages_4_6": {**stages, "card": card}}))
     print(json.dumps({"mapper_resume": resume}))
     print(json.dumps({"stage_7": {**retri, "card": card}}))
+    print(json.dumps({"stage_3": {**ra, "card": card}}))
     print(card)
     # the run used one card
     print(json.dumps({"ok": True, "device": {

@@ -1,17 +1,21 @@
-"""CLI: glomap_tpu_torch mapper_resume.
+"""CLI: glomap_tpu_torch mapper_resume and rotation_averager.
 
 Counterpart of glomap_tpu/cli.py (the reference's glomap/glomap.cc and
-exe/, RunMapperResume :108) with the same dotted flag surface as the
-reference's OptionManager (--BundleAdjustment.optimize_principal_point=1
-etc.; config.py holds the whole registry):
+exe/, RunMapperResume :108, the rotation averager's command) with the
+same dotted flag surface as the reference's OptionManager
+(--BundleAdjustment.optimize_principal_point=1 etc.; config.py holds the
+whole registry):
 
     python -m glomap_tpu_torch.cli mapper_resume --input_path M \\
         --output_path O [--checkpoint_dir D] [--device cpu]
+    python -m glomap_tpu_torch.cli rotation_averager --relpose_path R \\
+        --output_path O [--gravity_path G [--refine_gravity]] \\
+        [--weight_path W] [--device cpu]
 
 The solvers run on the CUDA card unless --device names another device;
-without a card and without --device cpu the command fails before it reads
-the model. The `mapper` and `rotation_averager` commands and
---distributed are not ported yet (ROADMAP A11, A9, A12).
+without a card and without --device cpu a command fails before it reads
+its input. The `mapper` command and --distributed are not ported yet
+(ROADMAP A11, A12).
 """
 
 from __future__ import annotations
@@ -75,11 +79,13 @@ def _apply_log_flags(name: str, value: str) -> bool:
     return False
 
 
-def _apply_dotted_flags(opt, unknown_args):
+def _apply_dotted_flags(opt, unknown_args, flat_ok=False):
     """Map --Module.option=value / --Module.option value onto the options,
     accepting the reference OptionManager's flag spellings (its
     AddAndRegister*Option names, the top-level ba_iteration_num /
-    retriangulation_iteration_num and the log_* flags)."""
+    retriangulation_iteration_num and the log_* flags). flat_ok: `opt` is
+    a flat options object (rotation_averager's), so a dotted name falls
+    back to its last part."""
     i = 0
     while i < len(unknown_args):
         arg = unknown_args[i]
@@ -102,11 +108,17 @@ def _apply_dotted_flags(opt, unknown_args):
         try:
             cfg.set_option(opt, name, value)
         except AttributeError:
-            # the reference's boost::program_options rejects unknown
-            # options (option_manager.cc Parse): a misspelt flag must not
-            # run with the defaults
-            print(f"error: unrecognised option '--{name}'", file=sys.stderr)
-            raise SystemExit(2)
+            try:
+                if not flat_ok:
+                    raise
+                cfg.set_option(opt, name.split(".")[-1], value)
+            except AttributeError:
+                # the reference's boost::program_options rejects unknown
+                # options (option_manager.cc Parse): a misspelt flag must
+                # not run with the defaults
+                print(f"error: unrecognised option '--{name}'",
+                      file=sys.stderr)
+                raise SystemExit(2)
     return opt
 
 
@@ -168,6 +180,40 @@ def run_mapper_resume(args, extra):
     return 0
 
 
+def run_rotation_averager(args, extra):
+    from glomap_tpu_torch.controllers.rotation_averager import (
+        RotationAveragerOptions, solve_rotation_averaging)
+    from glomap_tpu_torch.device import resolve_device
+    from glomap_tpu_torch.estimators.gravity_refinement import refine_gravity
+    from glomap_tpu_torch.io import pose_io
+    from glomap_tpu_torch.scene.arrays import Scene
+
+    opts = RotationAveragerOptions()
+    opts.use_gravity = bool(args.gravity_path)
+    _apply_dotted_flags(opts, extra, flat_ok=True)
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    scene = Scene()
+    vg = pose_io.read_rel_pose(args.relpose_path, scene)
+    if args.weight_path:
+        opts.use_weight = True
+        pose_io.read_rel_weight(args.weight_path, scene, vg)
+    if args.gravity_path:
+        pose_io.read_gravity(args.gravity_path, scene)
+        if args.refine_gravity:
+            refine_gravity(scene, vg)
+    vg.keep_largest_connected_component(scene)
+    if not solve_rotation_averaging(scene, vg, opts, device=device):
+        print("rotation averaging failed", file=sys.stderr)
+        return 1
+    pose_io.write_global_rotations(args.output_path, scene)
+    print(f"Global rotations written to: {args.output_path}")
+    return 0
+
+
 def main(argv=None):
     logging.basicConfig(
         level=logging.INFO,
@@ -195,6 +241,19 @@ def main(argv=None):
                    help="torch device of the solvers (default: the CUDA "
                         "card; 'cpu' runs the plain PyTorch path)")
     p.set_defaults(func=run_mapper_resume)
+
+    p = sub.add_parser("rotation_averager",
+                       help="standalone rotation averaging from a relative"
+                            " pose file")
+    p.add_argument("--relpose_path", required=True)
+    p.add_argument("--output_path", required=True)
+    p.add_argument("--gravity_path", default="")
+    p.add_argument("--weight_path", default="")
+    p.add_argument("--refine_gravity", action="store_true")
+    p.add_argument("--device", default=None,
+                   help="torch device of the solvers (default: the CUDA "
+                        "card; 'cpu' runs the plain PyTorch path in f64)")
+    p.set_defaults(func=run_rotation_averager)
 
     args, extra = parser.parse_known_args(argv)
     return args.func(args, extra)

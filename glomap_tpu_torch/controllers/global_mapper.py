@@ -2,7 +2,9 @@
 
 Counterpart of glomap_tpu/controllers/global_mapper.py (GlobalMapper.solve),
 itself the counterpart of glomap/controllers/global_mapper.{h,cc}
-(GlobalMapper::Solve, :19-361). The port runs stage 4 (track
+(GlobalMapper::Solve, :19-361). The port runs stage 3 (rotation
+averaging: two solves, each followed by the rotation filter and the
+largest connected component), stage 4 (track
 establishment), stage 5 (global positioning and its filters), stage 6
 (iterated staged bundle adjustment with progressive filtering and the
 early exit under 0.1% of the tracks filtered), stage 7 (retriangulation
@@ -13,7 +15,7 @@ budgets, and stage-boundary checkpoints: with options.checkpoint_dir set,
 stage_NN.npz holds the exact state after stage NN, and the next run
 resumes at NN + 1.
 
-Stages 0-3 are not ported yet. Options that would run one raise
+Stages 0-2 are not ported yet. Options that would run one raise
 NotImplementedError before any stage runs, naming the ROADMAP item.
 """
 
@@ -32,11 +34,14 @@ from glomap_tpu_torch.config import GlobalMapperOptions
 from glomap_tpu_torch.controllers import track_establishment as te
 from glomap_tpu_torch.controllers.retriangulation import (
     merge_tracks, retriangulate_tracks)
+from glomap_tpu_torch.controllers.rotation_averager import (
+    RotationAveragerOptions, solve_rotation_averaging)
 from glomap_tpu_torch.device import resolve_device
 from glomap_tpu_torch.estimators import global_positioning as gpm
 from glomap_tpu_torch.estimators.bundle_adjustment import (
     solve_bundle_adjustment)
 from glomap_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
+from glomap_tpu_torch.processors import relpose_filter as rpf
 from glomap_tpu_torch.processors import track_filter as tf
 from glomap_tpu_torch.processors.normalization import normalize_reconstruction
 from glomap_tpu_torch.processors.pruning import prune_weakly_connected_images
@@ -52,7 +57,6 @@ UNPORTED_STAGES = (
     (0, "skip_preprocessing", "preprocessing", "A10"),
     (1, "skip_view_graph_calibration", "view graph calibration", "A10"),
     (2, "skip_relative_pose_estimation", "relative pose estimation", "A10"),
-    (3, "skip_rotation_averaging", "rotation averaging", "A9"),
 )
 # stage 7's refinement rounds (colmap ba_global_max_refinements) and their
 # exit: the net change of the valid observations under this share
@@ -102,8 +106,15 @@ class GlobalMapper:
                 _write_stage_checkpoint(opt.checkpoint_dir, idx, scene,
                                         view_graph, tracks)
 
-        for idx in range(4):  # stages 0-3 are skipped (checked above)
+        for idx in range(3):  # stages 0-2 are skipped (checked above)
             ckpt(idx)
+
+        # 3. Rotation averaging (a filter pass and a final pass)
+        if start_stage <= 3 and not opt.skip_rotation_averaging:
+            with self.timer.stage("rotation averaging"):
+                if not self.rotation_averaging(scene, view_graph):
+                    return None
+        ckpt(3)
 
         # 4. Track establishment and selection
         if start_stage <= 4 and not opt.skip_track_establishment:
@@ -146,6 +157,50 @@ class GlobalMapper:
 
         logger.info("stage summary:\n%s", self.timer.summary())
         return tracks
+
+    def rotation_averaging(self, scene: Scene, vg: ViewGraph) -> bool:
+        """Stage 3: rotation averaging, the rotation filter and the
+        largest connected component, twice. As in the JAX package, the
+        first solve's result is not checked; a component of no image, or
+        a failed second solve, fails the stage."""
+        opt, dev = self.options, self.device
+        max_err = opt.inlier_thresholds.max_rotation_error
+        ra_opts = RotationAveragerOptions(**dataclasses.asdict(opt.opt_ra))
+        t0 = device_clock(dev)
+        passes = []
+
+        def solve() -> bool:
+            st = {"solves": []}
+            t1 = device_clock(dev)
+            st["ok"] = solve_rotation_averaging(
+                scene, vg, ra_opts, device=dev, dtype=self.dtype,
+                stats=st["solves"])
+            st["seconds"] = device_clock(dev) - t1
+            passes.append(st)
+            return st["ok"]
+
+        def filter_and_keep_component() -> int:
+            st = passes[-1]
+            st["filtered_pairs"] = rpf.filter_rotations(scene, vg, max_err)
+            st["component_images"] = vg.keep_largest_connected_component(
+                scene)
+            if st["component_images"] == 0:
+                logger.error("no connected components are found")
+            return st["component_images"]
+
+        solve()
+        if filter_and_keep_component() == 0:
+            return False
+        if not solve():
+            return False
+        num_img = filter_and_keep_component()
+        if num_img == 0:
+            return False
+        logger.info("%d / %d images within the connected component",
+                    num_img, scene.num_images)
+        self.reports["rotation averaging"] = {
+            "seconds": device_clock(dev) - t0, "passes": passes}
+        return True
 
     def establish_tracks(self, scene: Scene, vg: ViewGraph) -> Tracks:
         """Stage 4: every track of the inlier matches, then the selection

@@ -2,16 +2,29 @@
 
 Counterpart of glomap_tpu/math/rotation.py (quat_normalize, quat_mul,
 quat_conj, quat_rotate, quat_to_rotmat, rotmat_to_quat, so3_exp_quat,
+so3_exp, quat_to_angle_axis, so3_log, rotation_angle_rad, quat_angle_rad,
 relative_quat_angle_rad, rigid_apply, rigid_inverse, rigid_compose,
-pose_center). Conventions are
-COLMAP's:
+pose_center, degrees, radians, average_quats). Conventions are COLMAP's:
 quaternions are (w, x, y, z) with x' = R(q) x, poses are cam_from_world,
-and every function takes arbitrary leading batch dimensions.
+and every function takes arbitrary leading batch dimensions. The JAX
+module also takes numpy arrays; this one takes tensors only, and host
+code calls it on CPU float64 tensors (`host` below converts at the
+boundary).
 """
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
+
+
+def host(fn, *arrays):
+    """fn on CPU float64 tensors of numpy arrays, back as numpy: the host
+    callers' numpy path (the MST init, gravity math, rig bootstrap)."""
+    return fn(*(torch.from_numpy(np.asarray(a, dtype=np.float64))
+                for a in arrays)).numpy()
 
 
 def quat_normalize(q: torch.Tensor) -> torch.Tensor:
@@ -118,3 +131,61 @@ def pose_center(q: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """Projection center -R^T t of a cam_from_world pose (reference
     glomap/math/rigid3d.h CenterFromPose)."""
     return -quat_rotate(quat_conj(q), t)
+
+
+def so3_exp(w: torch.Tensor) -> torch.Tensor:
+    """Angle-axis vector (..., 3) -> rotation matrix (..., 3, 3)."""
+    return quat_to_rotmat(so3_exp_quat(w))
+
+
+def quat_to_angle_axis(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion -> angle-axis vector (..., 3); robust near 0 and pi."""
+    q = torch.where(q[..., :1] < 0, -q, q)  # take the short arc
+    w = q[..., 0]
+    vn = torch.linalg.vector_norm(q[..., 1:], dim=-1)
+    theta = 2.0 * torch.atan2(vn, w)
+    # theta / sin(theta/2) = theta / vn ; small-angle: 2 + theta^2/12
+    small = vn < 1e-8
+    scale = torch.where(small, 2.0 + theta * theta / 12.0,
+                        theta / torch.clamp(vn, min=1e-30))
+    return scale[..., None] * q[..., 1:]
+
+
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> angle-axis vector; robust near 0 and pi (the
+    quaternion route of reference glomap/math/rigid3d.cc
+    RotationToAngleAxis)."""
+    return quat_to_angle_axis(rotmat_to_quat(R))
+
+
+def rotation_angle_rad(R: torch.Tensor) -> torch.Tensor:
+    """Rotation angle in radians of (..., 3, 3) matrices."""
+    tr = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    return torch.arccos(torch.clamp((tr - 1.0) * 0.5, -1.0, 1.0))
+
+
+def quat_angle_rad(q: torch.Tensor) -> torch.Tensor:
+    """Rotation angle in radians of unit quaternions."""
+    q = torch.where(q[..., :1] < 0, -q, q)
+    return 2.0 * torch.atan2(torch.linalg.vector_norm(q[..., 1:], dim=-1),
+                             q[..., 0])
+
+
+def degrees(x):
+    return x * (180.0 / math.pi)
+
+
+def radians(x):
+    return x * (math.pi / 180.0)
+
+
+def average_quats(quats: torch.Tensor, weights=None) -> torch.Tensor:
+    """Chordal-L2 mean of unit quaternions (the largest eigenvector of
+    sum w q q^T); colmap's AverageQuaternions, as the reference rotation
+    initializer uses it (glomap/estimators/rotation_initializer.cc:7)."""
+    if weights is None:
+        weights = torch.ones(quats.shape[:-1], dtype=quats.dtype,
+                             device=quats.device)
+    M = torch.einsum("...n,...ni,...nj->...ij", weights, quats, quats)
+    _, vecs = torch.linalg.eigh(M)
+    return quat_normalize(vecs[..., -1])

@@ -1,13 +1,26 @@
 """Small dense and matrix-free linear solvers on tensors.
 
-Counterpart of glomap_tpu/ops/linear.py (inv3x3, cg_generic). The JAX
+Counterpart of glomap_tpu/ops/linear.py (inv3x3, build_laplacian_dense,
+pin_node, solve_laplacian_dense, laplacian_matvec, cg_generic). The JAX
 `lax.while_loop` of cg_generic becomes a Python loop with the same exit
 test; that test reads one scalar back to the host per CG iteration.
+
+The graph Laplacians of rotation averaging read their edges through
+`LaplacianEdges`: every edge-to-node sum is one B3 launch (kernels.rowsum)
+over the doubled edge list, the matrix-free apply gathers with one B2
+launch (kernels.gather) on the doubled list's far ends, and the dense matrix sums the weights of each distinct
+(row, column) entry with B3 and writes every entry once. No scatter adds
+with atomics, so the card's results are the same bits on every run.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
+
+from glomap_tpu_torch.ops import kernels
+from glomap_tpu_torch.ops.kernels import SegmentAxis
 
 
 def inv3x3(A: torch.Tensor) -> torch.Tensor:
@@ -70,3 +83,124 @@ def cg_generic(matvec, b: torch.Tensor, minv_diag=None, max_iters: int = 100,
     if return_info:
         return x, it, torch.linalg.vector_norm(r) / bnorm
     return x
+
+
+# the relative diagonal damping of every dense Laplacian solve (the JAX
+# package's default)
+DAMPING = 1e-10
+
+
+@dataclass(frozen=True)
+class LaplacianEdges:
+    """The E edges (fi, fj) of a graph on num_nodes nodes, on the kernels'
+    axes. `axis` is the doubled edge list src = cat(fi, fj) as a
+    SegmentAxis over the nodes: row r < E is edge r seen from fi, row
+    E + r edge r seen from fj. `dst_axis` holds the far end of each row,
+    dst = cat(fj, fi), for the gather. `entries` (None unless built with
+    dense=True) is the axis of the distinct off-diagonal entries
+    (src, dst) of the doubled list, and `entry_flat` their flat indices
+    row * num_nodes + column."""
+    fi: torch.Tensor
+    fj: torch.Tensor
+    num_nodes: int
+    axis: SegmentAxis
+    dst_axis: SegmentAxis
+    entries: SegmentAxis | None = None
+    entry_flat: torch.Tensor | None = None
+
+    @staticmethod
+    def build(fi: torch.Tensor, fj: torch.Tensor, num_nodes: int,
+              dense: bool = False) -> "LaplacianEdges":
+        fi, fj = fi.long(), fj.long()
+        src, dst = torch.cat([fi, fj]), torch.cat([fj, fi])
+        axis = SegmentAxis.build(src, num_nodes)
+        dst_axis = SegmentAxis.build(dst, num_nodes)
+        entries = flat = None
+        if dense:
+            flat, inverse = torch.unique(src * num_nodes + dst,
+                                         return_inverse=True)
+            entries = SegmentAxis.build(inverse, flat.shape[0])
+        return LaplacianEdges(fi, fj, int(num_nodes), axis, dst_axis,
+                              entries, flat)
+
+    @property
+    def num_edges(self) -> int:
+        return self.fi.shape[0]
+
+    def edge_sums(self, vals_i: torch.Tensor,
+                  vals_j: torch.Tensor) -> torch.Tensor:
+        """(E, k) values landing at fi and at fj -> (num_nodes, k) sums:
+        one B3 launch."""
+        return kernels.rowsum(torch.cat([vals_i.T, vals_j.T], 1)
+                              .contiguous(), self.axis)
+
+    def gather_dst(self, tab: torch.Tensor) -> torch.Tensor:
+        """tab (num_nodes, k) -> (k, 2E) rows tab[dst] of the doubled list
+        (tab[fj] then tab[fi]): one B2 launch."""
+        return kernels.gather(tab.contiguous(), self.dst_axis)
+
+
+def build_laplacian_dense(edges: LaplacianEdges,
+                          w: torch.Tensor) -> torch.Tensor:
+    """The weighted graph Laplacian (n, n) of edges built with dense=True:
+    each entry's weights summed by B3 and written once, the degrees by B3
+    on the diagonal."""
+    n = edges.num_nodes
+    off = kernels.rowsum(torch.cat([w, w])[None].contiguous(),
+                         edges.entries)
+    L = torch.zeros(n * n, dtype=w.dtype, device=w.device)
+    L[edges.entry_flat] = -off[:, 0]
+    L = L.view(n, n)
+    deg = edges.edge_sums(w[:, None], w[:, None])[:, 0]
+    L.diagonal().add_(deg)
+    return L
+
+
+def pin_node(L: torch.Tensor, rhs: torch.Tensor, fixed: int):
+    """Pin node `fixed` to zero: unit row and column in L, zero rhs (the
+    exact gauge fix, the reference's fixed_camera_id_)."""
+    n = L.shape[0]
+    onehot = torch.zeros(n, dtype=L.dtype, device=L.device)
+    onehot[fixed] = 1.0
+    keep = 1.0 - onehot
+    L = L * keep[:, None] * keep[None, :] + torch.diag(onehot)
+    rhs = rhs * keep[:, None] if rhs.dim() == 2 else rhs * keep
+    return L, rhs
+
+
+def cholesky_factor(L: torch.Tensor) -> torch.Tensor:
+    """The lower Cholesky factor of L, NaN where L is not positive
+    definite (as jax.scipy.linalg.cho_factor), without a host read."""
+    c, info = torch.linalg.cholesky_ex(L)
+    return torch.where(info == 0, c, torch.full_like(c, float("nan")))
+
+
+def damped_pinned(L: torch.Tensor, fixed: int) -> torch.Tensor:
+    """L + DAMPING * max(mean(diag L), 1) I with node `fixed` pinned."""
+    scale = torch.clamp(torch.mean(torch.diagonal(L)), min=1.0)
+    L = L + (DAMPING * scale) * torch.eye(L.shape[0], dtype=L.dtype,
+                                          device=L.device)
+    return pin_node(L, L.new_zeros((L.shape[0], 1)), fixed)[0]
+
+
+def solve_laplacian_dense(edges: LaplacianEdges, w: torch.Tensor,
+                          rhs: torch.Tensor, fixed: int) -> torch.Tensor:
+    """Solve (L + DAMPING * scale I) x = rhs, rhs (n, k), with node
+    `fixed` pinned to 0: dense Cholesky."""
+    L = damped_pinned(build_laplacian_dense(edges, w), fixed)
+    rhs = rhs.clone()
+    rhs[fixed] = 0.0
+    return torch.cholesky_solve(rhs, cholesky_factor(L))
+
+
+def laplacian_matvec(edges: LaplacianEdges, w2: torch.Tensor,
+                     deg: torch.Tensor, x: torch.Tensor,
+                     keep: torch.Tensor) -> torch.Tensor:
+    """L x for x (n, k), w2 (2E,) the weights of the doubled list, deg the
+    degrees; `keep` zeroes the pinned node, whose row is the identity.
+    A x is one B2 gather of x[dst] and one B3 sum by src."""
+    xk = x * keep[:, None]
+    ax = kernels.rowsum((w2[None] * edges.gather_dst(xk)).contiguous(),
+                        edges.axis)
+    y = deg[:, None] * xk - ax
+    return y * keep[:, None] + x * (1.0 - keep)[:, None]

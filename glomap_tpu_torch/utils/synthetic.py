@@ -295,3 +295,32 @@ def synthesize_dataset(opt: SyntheticOptions):
         "kp_point": kp_point,
     }
     return scene, vg, gt
+
+
+def synthesize_gravity(scene: Scene, gt: dict, rng: np.random.Generator,
+                       noise_deg: float = 0.0, outlier_ratio: float = 0.0,
+                       outlier_deg: float = 90.0, axis=(0.0, 1.0, 0.0)):
+    """Attach gravity priors from the scene's rotations, with noise and
+    gross outliers (rotation_averager_test.cc:36-66): the prior of a frame
+    is the world's down axis in its reference image's camera,
+    g = R_cam_from_world @ axis (the reference's axis is [0, 1, 0], and
+    RotationEstimatorOptions.axis must match). The same rng draws as the
+    JAX package's synthesize_gravity."""
+    down = np.asarray(axis, dtype=np.float64)
+    down = down / np.linalg.norm(down)
+    q, _ = scene.image_cam_from_world()
+    n_frame = scene.num_frames
+    scene.frame_has_gravity = np.ones(n_frame, dtype=bool)
+    for fidx in range(n_frame):
+        ref_img = np.nonzero(scene.image_frame == fidx)[0][0]
+        g = rotm.host(rotm.quat_rotate, q[ref_img], down)
+        ang = np.deg2rad(noise_deg) if rng.uniform() >= outlier_ratio \
+            else np.deg2rad(outlier_deg)
+        if ang > 0:
+            ax = rng.standard_normal(3)
+            ax /= np.linalg.norm(ax)
+            R = rotm.host(rotm.so3_exp,
+                          ax * ang * abs(rng.standard_normal()))
+            g = R @ g
+        scene.frame_gravity[fidx] = g / np.linalg.norm(g)
+    return scene
