@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's global bundle adjustment, stage-2 inlier
-sweep, stages 3-7 of the mapper and its mapper_resume and
+sweep, stages 0-7 of the mapper and its mapper, mapper_resume and
 rotation_averager commands on one NVIDIA card, check every kernel against
 its plain PyTorch version, and time it.
 
@@ -142,13 +142,41 @@ Phases (each raises on failure; the exit code is then non-zero):
               pairwise errors under 3 deg; one Laplacian apply on its
               axes timed whole and as its B2 and B3 launches alone. (e) GlobalMapper.solve runs
               stages 3-6 on (a)'s scene: centers within 0.15.
+9. mapper   -- the `mapper` command from a COLMAP database. (a) Phase
+              4's sweep scene, its two-view geometries kept (config, E,
+              F, H, relative pose) and every frame pose reset, written by
+              write_database under build/mapper/ (seconds, bytes). (b)
+              The front end on the card against the CPU's plain f32 path
+              from the same input: decompose_rel_pose (the same
+              configurations and PANORAMIC pairs), calibrate_view_graph
+              with the prior cleared and the focal at 1.3x (within 1% of
+              the generator's, the same pairs kept; B3 carries its
+              normal equations, and the card's run is counted and its
+              kernel inputs recorded: the `view_graph_calibration` path
+              of the kernels line), one RANSAC round of 64 hypotheses on
+              every pair with the same draws (best counts), and the LO
+              step from the same start (rotations, translations), within
+              the measured FRONT_* bounds. (c) estimate_relative_poses on
+              the card: twice bit for bit, once profiled (the device's
+              busy share), one round profiled (launches a round); pose
+              errors against the generator within tests/test_relpose.py's
+              noisy oracle. (d) `cli.main(["mapper", ...])` with the
+              counters zeroed (B1-B7 must launch; every kernel input of
+              stages 0-7 is recorded, checked and timed like phase 2,
+              the `mapper` path of the kernels line), again, with
+              --checkpoint_dir, and resumed from that run's stage_02.npz
+              with the later checkpoints deleted: the same bytes four
+              times; at least 99 of the 100 images registered, finite
+              points, centers within 0.15 of the generator's by image
+              name, and the keypoint oracle (98%).
 
 Output: the {"kernels": [...]} line (seven kernels; each path's numbers
 under "paths"), a {"slice": ...} line, an {"inlier_sweep": ...} line, a
 {"stages_4_6": ...} line, a {"mapper_resume": ...} line, a {"stage_7":
-...} line, a {"stage_3": ...} line, the card's name and power limit, and
-last {"ok": true, "device": {...}}. Without a CUDA device it prints no
-result and exits 1.
+...} line, a {"stage_3": ...} line, a {"mapper": ...} line (its runs'
+StageTimer seconds: read database, stages 0-7, write model), the card's
+name and power limit, and last {"ok": true, "device": {...}}. Without a
+CUDA device it prints no result and exits 1.
 """
 
 from __future__ import annotations
@@ -178,11 +206,16 @@ from glomap_tpu_torch.estimators import global_positioning as gpm
 from glomap_tpu_torch.estimators.bundle_adjustment import (
     _solve_ba, solve_bundle_adjustment)
 from glomap_tpu_torch.estimators.gravity_refinement import refine_gravity
+from glomap_tpu_torch.estimators import relpose
 from glomap_tpu_torch.estimators.rotation_averaging import (
     build_edge_ops, estimate_rotations)
+from glomap_tpu_torch.estimators.view_graph_calibration import (
+    calibrate_view_graph)
 from glomap_tpu_torch.io import pose_io
 from glomap_tpu_torch.io.colmap_model import read_model
-from glomap_tpu_torch.io.convert import scene_to_model, write_reconstruction
+from glomap_tpu_torch.io.convert import (database_to_scene, scene_to_model,
+                                         write_reconstruction)
+from glomap_tpu_torch.io.database import read_database, write_database
 from glomap_tpu_torch.math import gravity as gravm
 from glomap_tpu_torch.math import rotation as rotm
 from glomap_tpu_torch.math.rotation import pose_center
@@ -191,6 +224,7 @@ from glomap_tpu_torch.ops import _build, kernels, linear
 from glomap_tpu_torch.ops import triangulation as tri
 from glomap_tpu_torch.ops import camera_models as cm
 from glomap_tpu_torch.processors import pair_inliers, relpose_filter
+from glomap_tpu_torch.processors import view_graph_manipulation as vgmp
 from glomap_tpu_torch.processors.undistortion import undistort_images
 from glomap_tpu_torch.scene import view_graph as vgm
 from glomap_tpu_torch.scene.arrays import Scene, Tracks
@@ -358,6 +392,43 @@ COMPONENT_MAX_DEG, CITY_MAX_DEG = 2.0, 3.0
 # deterministic. The bound leaves 11x.
 RA_CPU_F32_RAD = 3e-6
 RA_DIR = Path(__file__).resolve().parent / "build" / "rotation_averager"
+# phase 9: the mapper from a COLMAP database (under build/). The front end
+# on the card against the CPU's plain f32 path from the same input. The
+# sources differ in the order of the sums (B3's chunks, cuBLAS's batched
+# products and triangular solves against the CPU's) and the SVD (cuSOLVER
+# against LAPACK). Measured bounds, not derived ones, from this phase's
+# first run on an NVIDIA H100 80GB HBM3 (700 W); both sides are
+# deterministic:
+# * decompose_rel_pose's poses: 4.3e-7 rad;
+# * calibrate_view_graph's focal: 1.76e-4 relative (the LM took 7 steps on
+#   the card, 9 on the CPU); 3 of the 4,695 pairs kept on one side only,
+#   pairs whose two-view residual is f32 rounding (FRONT_CALIB_F64 counts
+#   the card's kept pairs against the CPU's f64 path beside it);
+# * one RANSAC round: in f32 the 8-point system's shift 1e-8 tr(AtA) is
+#   below the rounding of tr(AtA), so near-degenerate samples give other
+#   nullspaces on the card and the CPU: 1,293 of 4,950 pairs had another
+#   best count (up to 433 slots), and each f32 side ~1,700 against the
+#   CPU's f64 round; the summed best counts differ by 1.3e-3 (card
+#   1,131,816, CPU 1,133,339, f64 1,127,268). The bounds are on that share
+#   and on the sums;
+# * the LO step from the same start: 1.88e-4 rad and 7.6e-5.
+MAPPER_DIR = Path(__file__).resolve().parent / "build" / "mapper"
+FRONT_DECOMPOSE_RAD = 1e-5
+FRONT_FOCAL_REL = 1e-3
+FRONT_CALIB_PAIRS = 10
+FRONT_COUNT_PAIRS_SHARE = 0.35
+FRONT_COUNT_SUM_REL = 0.01
+FRONT_REFINE_RAD = 1e-3
+FRONT_REFINE_TRANS = 1e-3
+# the generator's focal from a 1.3x start, without a prior
+# (tests/test_view_graph_calibration.py's oracle)
+CALIB_START, CALIB_FOCAL_REL = 1.3, 0.01
+# tests/test_relpose.py's noisy oracle: median rotation error and the
+# share of pairs under 2 deg
+RELPOSE_MEDIAN_DEG, RELPOSE_UNDER_2DEG = 0.5, 0.85
+MAPPER_MIN_IMAGES = 99
+# the kernels on the mapper's path (B1-B7)
+MAPPER_KERNELS = tuple(REPLACES)
 
 
 def card_line() -> str:
@@ -447,7 +518,7 @@ def sampson_bound(E9, x1T, x2T):
 
 def _key(name, args):
     if name == "projection_resid_jac":
-        return (name, args[7] is not None)
+        return (name, args[7] is not None, args[0].shape[1])
     if name == "huber_irls":
         return (name, tuple(args[0].shape), args[1], args[2] is not None)
     axis = args[-1]
@@ -908,8 +979,8 @@ def measure_case(name, args, gen, peak_bw, peak_flops, on_path=True):
 
 def _path_summary(cases, calls, launches):
     """A kernel's per-launch numbers on one path, averaged over the path's
-    shapes weighted by their calls in the recorded run; only the launches
-    where the path's inputs were not recorded."""
+    shapes weighted by their calls in the recorded run; the launches
+    alone where no input of the path was recorded."""
     on = [(c, calls[i]) for i, c in enumerate(cases) if c["on_path"]]
     n = sum(w for _, w in on)
     if not n:
@@ -2007,14 +2078,14 @@ def rotation_averager_command() -> dict:
     scene, vg = graph_scene(fi, fj, q_rel, COMPONENT_GRAPH["frames"])
     shutil.rmtree(RA_DIR, ignore_errors=True)
     RA_DIR.mkdir(parents=True)
-    relpose = RA_DIR / "relpose.txt"
-    pose_io.write_rel_poses(str(relpose), scene, vg)
+    rel_path = RA_DIR / "relpose.txt"
+    pose_io.write_rel_poses(str(rel_path), scene, vg)
     seconds, outs = [], []
     kernels.reset_launch_counts()
     for k in range(2):
         out = RA_DIR / f"rotations_{k}.txt"
         t0 = time.perf_counter()
-        rc = cli.main(["rotation_averager", "--relpose_path", str(relpose),
+        rc = cli.main(["rotation_averager", "--relpose_path", str(rel_path),
                        "--output_path", str(out)])
         seconds.append(time.perf_counter() - t0)
         if rc != 0:
@@ -2157,6 +2228,367 @@ def rotation_phase(scene_f, vg_f, gt_centers, dev):
         "launches_a_b_d": launches}
     report["phase_seconds"] = time.perf_counter() - t_phase
     return report, cases, launches
+
+
+# ----------------------------------------------------------------------------
+# phase 9: the mapper command from a COLMAP database
+# ----------------------------------------------------------------------------
+
+
+def mapper_database(root: Path):
+    """(a) The sweep scene as COLMAP's matcher would store it: its
+    two-view geometries (config, E, F, H and relative pose) kept, every
+    frame pose reset. Returns (database path, the generator's frame
+    center by image name, the generator's relative poses, report)."""
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    scene, vg, gen_s = sweep_problem()
+    centers = scene.frame_centers()
+    names_gt = {n: centers[scene.image_frame[k]]
+                for k, n in enumerate(scene.image_names)}
+    pair_gt = (vg.pair_quat.copy(), vg.pair_trans.copy())
+    scene.frame_quat[:] = [1.0, 0.0, 0.0, 0.0]
+    scene.frame_trans[:] = 0.0
+    path = root / "database.db"
+    t0 = time.perf_counter()
+    write_database(str(path), scene, vg)
+    write_s = time.perf_counter() - t0
+    report = {"problem": (f"synthetic {SWEEP_OPTIONS}: {scene.num_images} "
+                          f"images, {vg.num_pairs} pairs, {vg.num_matches} "
+                          f"matches, {scene.num_keypoints} keypoints"),
+              "generation_s": gen_s, "write_s": write_s,
+              "bytes": path.stat().st_size,
+              "configs": {str(c): int((vg.pair_config == c).sum())
+                          for c in np.unique(vg.pair_config)}}
+    return path, names_gt, pair_gt, report
+
+
+def ingest(path):
+    """(scene, view graph, seconds) of a database, as `mapper` reads it."""
+    t0 = time.perf_counter()
+    scene, vg = database_to_scene(read_database(str(path)))
+    return scene, vg, time.perf_counter() - t0
+
+
+def _qdiff(a, b) -> float:
+    """The largest rotation angle (rad) between unit quaternions a and b
+    (2 |a - b| up to sign: first-order exact, not limited by arccos)."""
+    s = np.sign(np.sum(a * b, -1, keepdims=True))
+    return float(2 * np.linalg.norm(a - s * b, axis=-1).max())
+
+
+def front_end_vs_cpu(scene0, vg0, dev) -> dict:
+    """(b) decompose_rel_pose, calibrate_view_graph (the prior cleared,
+    the focal at 1.3x), one RANSAC round of 64 hypotheses on every pair
+    with the same draws, and the LO step from the same start, each on the
+    card and on the CPU's plain f32 path from the same input (the rays of
+    the card's lift). Returns (report, the card calibration's recorded
+    kernel inputs, its launches): the `mapper` run's cameras carry prior
+    focals, so its calibration solves nothing, and B3's (C, C) normal
+    matrix is checked here."""
+    cpu, f32 = torch.device("cpu"), torch.float32
+    scene = scene0.copy()
+    undistort_images(scene, device=dev)
+    out = {}
+    # decomposition
+    res = {}
+    for name, d in (("card", dev), ("cpu", cpu)):
+        vg = vg0.copy()
+        t0 = time.perf_counter()
+        n_pure = vgmp.decompose_rel_pose(scene, vg, device=d, dtype=f32)
+        res[name] = (vg, n_pure, time.perf_counter() - t0)
+    (vg_c, pure_c, s_c), (vg_p, pure_p, s_p) = res["card"], res["cpu"]
+    if not (np.array_equal(vg_c.pair_config, vg_p.pair_config)
+            and pure_c == pure_p):
+        raise AssertionError("decompose_rel_pose: configurations differ "
+                             "on the card and the CPU")
+    out["decompose"] = {
+        "pure_rotations": pure_c, "seconds_card": s_c, "seconds_cpu": s_p,
+        "quat_rad": _qdiff(vg_c.pair_quat, vg_p.pair_quat),
+        "trans": float(np.abs(vg_c.pair_trans - vg_p.pair_trans).max()),
+        "bound_rad": FRONT_DECOMPOSE_RAD}
+    # calibration from a 1.3x focal without a prior
+    f_gt = scene.cam_params[:, 0].copy()
+    res = {}
+    for name, d, dt in (("card", dev, f32), ("cpu", cpu, f32),
+                        ("cpu_f64", cpu, torch.float64)):
+        sc, vg = scene.copy(), vg0.copy()
+        sc.cam_has_prior_focal[:] = False
+        sc.cam_params[:, 0:2] *= CALIB_START
+        st, ok = {}, {}
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        cases = record_cases(lambda: ok.update(ok=calibrate_view_graph(
+            sc, vg, device=d, dtype=dt, stats=st)))
+        if not ok["ok"]:
+            raise AssertionError(f"calibrate_view_graph failed ({name})")
+        st["seconds"] = time.perf_counter() - t0
+        st["rowsum_launches"] = kernels.LAUNCHES["rowsum"]
+        if name == "card":
+            calib = (cases, dict(kernels.LAUNCHES))
+        res[name] = (sc.cam_params[:, 0].copy(), vg.pair_valid.copy(), st)
+    (f_c, valid_c, st_c), (f_p, valid_p, st_p) = res["card"], res["cpu"]
+    rel_gt = float(np.abs(f_c / f_gt - 1).max())
+    if not rel_gt < CALIB_FOCAL_REL or st_c["rowsum_launches"] == 0:
+        raise AssertionError(f"calibration: focal {rel_gt} off the "
+                             f"generator's, {st_c}")
+    out["calibration"] = {
+        "focal_rel_to_generator": rel_gt,
+        "focal_rel_card_cpu": float(np.abs(f_c / f_p - 1).max()),
+        "bound_rel": FRONT_FOCAL_REL, "card": st_c, "cpu": st_p,
+        "pairs_kept": int(valid_c.sum()),
+        "pairs_kept_differ": int((valid_c != valid_p).sum()),
+        "pairs_kept_differ_card_vs_f64": int(
+            (valid_c != res["cpu_f64"][1]).sum()),
+        "cpu_f64": res["cpu_f64"][2], "bound_pairs": FRONT_CALIB_PAIRS}
+    # one RANSAC round on every pair with the same draws, then the LO step
+    # from the same start
+    vg = vg0.copy()
+    P = vg.num_pairs
+    gen = torch.Generator().manual_seed(0)
+    u = torch.randint(0, 1 << 30, (P, 2, relpose.HYP_PER_ROUND),
+                      generator=gen)
+    rounds, tabs = {}, {}
+    for name, d, dt in (("card", dev, f32), ("cpu", cpu, f32),
+                        ("cpu_f64", cpu, torch.float64)):
+        tab, mask, counts = relpose._pair_tables(scene, vg, 512, 1, d, dt)
+        f = scene.cam_params[scene.image_camera, 0]
+        thr = torch.from_numpy((0.5 * (1 / f[vg.pair_i] + 1 / f[vg.pair_j])
+                                ) ** 2).to(d, dt)
+        tabs[name] = (tab, mask, thr)
+        t0 = time.perf_counter()
+        E, c = relpose._ransac_rounds(
+            [u.to(d)], torch.stack(tab, 1), mask, counts, thr,
+            torch.zeros((P, 3, 3), dtype=dt, device=d),
+            torch.zeros(P, dtype=torch.int64, device=d))
+        c = c.cpu().numpy()
+        rounds[name] = (E, c, time.perf_counter() - t0)
+    c_c, c_p, c_64 = (rounds[k][1] for k in ("card", "cpu", "cpu_f64"))
+    diff = np.abs(c_c - c_p)
+    out["ransac_round"] = {
+        "pairs": P, "hypotheses": relpose.HYP_PER_ROUND,
+        "pairs_count_differs": int((diff > 0).sum()),
+        "count_diff_max": int(diff.max()),
+        "count_sum": {"card": int(c_c.sum()), "cpu": int(c_p.sum()),
+                      "cpu_f64": int(c_64.sum())},
+        "pairs_count_differs_from_f64": {
+            "card": int((c_c != c_64).sum()),
+            "cpu": int((c_p != c_64).sum())},
+        "seconds_card": rounds["card"][2], "seconds_cpu": rounds["cpu"][2],
+        "seconds_cpu_f64": rounds["cpu_f64"][2],
+        "bound_pairs_share": FRONT_COUNT_PAIRS_SHARE,
+        "bound_sum_rel": FRONT_COUNT_SUM_REL}
+    tab, mask, _ = tabs["card"]
+    q0, t0_ = relpose._choose_pose_tab(rounds["card"][0], tab, mask)
+    refined = {}
+    for name, d in (("card", dev), ("cpu", cpu)):
+        tab, mask, thr = tabs[name]
+        t0 = time.perf_counter()
+        q, t = relpose._refine_poses_tab(q0.to(d), t0_.to(d), tab, mask,
+                                         thr, 10)
+        refined[name] = (q.cpu().double().numpy(), t.cpu().double().numpy(),
+                         time.perf_counter() - t0)
+    out["refine"] = {
+        "quat_rad": _qdiff(refined["card"][0], refined["cpu"][0]),
+        "trans": float(np.abs(refined["card"][1] - refined["cpu"][1]).max()),
+        "seconds_card": refined["card"][2], "seconds_cpu": refined["cpu"][2],
+        "bound_rad": FRONT_REFINE_RAD, "bound_trans": FRONT_REFINE_TRANS}
+    return (out, *calib)
+
+
+def check_front_end(fe: dict) -> None:
+    """The card-vs-CPU bounds of (b)."""
+    rr, ref = fe["ransac_round"], fe["refine"]
+    sums = rr["count_sum"]
+    fails = [
+        fe["calibration"]["pairs_kept_differ"] > FRONT_CALIB_PAIRS,
+        fe["decompose"]["quat_rad"] > FRONT_DECOMPOSE_RAD,
+        fe["calibration"]["focal_rel_card_cpu"] > FRONT_FOCAL_REL,
+        rr["pairs_count_differs"] > FRONT_COUNT_PAIRS_SHARE * rr["pairs"],
+        abs(sums["card"] - sums["cpu"]) > FRONT_COUNT_SUM_REL * sums["cpu"],
+        ref["quat_rad"] > FRONT_REFINE_RAD,
+        ref["trans"] > FRONT_REFINE_TRANS]
+    if any(fails):
+        raise AssertionError(f"front end: card and CPU differ beyond the "
+                             f"measured bounds: {fe}")
+
+
+def launches_per_round(scene, vg, dev) -> dict:
+    """One RANSAC round on every pair under torch.profiler: its device
+    kernels (launches) and device ms."""
+    from torch.autograd import DeviceType
+    tab, mask, counts = relpose._pair_tables(scene, vg, 512, 1, dev,
+                                             torch.float32)
+    P = vg.num_pairs
+    args = (torch.stack(tab, 1), relpose._lift(tab), mask, counts,
+            torch.full((P,), 1e-6, device=dev),
+            torch.zeros((P, 3, 3), device=dev),
+            torch.zeros(P, dtype=torch.int64, device=dev))
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def one():
+        u = torch.randint(0, 1 << 30, (P, 2, relpose.HYP_PER_ROUND),
+                          generator=gen, device=dev)
+        return relpose._ransac_round(u, *args)
+    one()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    by = {}
+    for e in kern:
+        by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(by.items(), key=lambda kv: -kv[1])[:6]
+    return {"launches": len(kern), "device_ms": dev_ms or "not measured",
+            "wall_ms": wall_ms,
+            "top_device_ms": [{"name": n[:80], "ms": ms} for n, ms in top]}
+
+
+def relpose_counted(scene0, vg0, pair_gt, dev) -> dict:
+    """(c) estimate_relative_poses on the card on the ingested scene
+    (lifted): twice, bit for bit alike, then once under torch.profiler
+    (the device's busy share); pose errors against the generator's."""
+    from torch.autograd import DeviceType
+    scene = scene0.copy()
+    undistort_images(scene, device=dev)
+    runs = []
+    for _ in range(2):
+        vg, st = vg0.copy(), {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        relpose.estimate_relative_poses(scene, vg, device=dev, stats=st)
+        torch.cuda.synchronize()
+        st["seconds"] = time.perf_counter() - t0
+        runs.append((vg, st))
+    (vg, st), (vg2, _) = runs
+    if not all(np.array_equal(getattr(vg, k), getattr(vg2, k)) for k in (
+            "pair_quat", "pair_trans", "_relpose_budget")):
+        raise AssertionError("estimate_relative_poses: two runs differ")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        relpose.estimate_relative_poses(scene, vg0.copy(), device=dev)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev_ms = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA) / 1e3
+    rot = np.degrees(rotm.host(rotm.relative_quat_angle_rad, vg.pair_quat,
+                               pair_gt[0]))
+    t_gt = pair_gt[1] / np.linalg.norm(pair_gt[1], axis=-1, keepdims=True)
+    tdir = np.degrees(np.arccos(np.clip(np.sum(vg.pair_trans * t_gt, -1),
+                                        -1, 1)))
+    rep = {**st, "bitwise_reproducible": True,
+           "profiled_wall_ms": wall_ms,
+           "device_ms": dev_ms or "not measured",
+           "device_busy_share": dev_ms / wall_ms if dev_ms else
+           "not measured",
+           "rotation_error_deg": {"median": float(np.median(rot)),
+                                  "max": float(rot.max()),
+                                  "under_2deg": float((rot < 2.0).mean())},
+           "translation_dir_error_deg": {"median": float(np.median(tdir))},
+           "round": launches_per_round(scene, vg0, dev)}
+    if not (np.median(rot) < RELPOSE_MEDIAN_DEG
+            and (rot < 2.0).mean() > RELPOSE_UNDER_2DEG):
+        raise AssertionError(f"estimate_relative_poses: pose errors "
+                             f"{rep['rotation_error_deg']}")
+    return rep
+
+
+def mapper_command(db, names_gt, num_keypoints, dev, card):
+    """(d) `cli.main(["mapper", ...])` on the card: counted (B1-B7 must
+    launch; the kernel inputs of every stage recorded), again, with
+    --checkpoint_dir, and resumed from that run's stage_02.npz with the
+    later checkpoints deleted; all four must write the same bytes.
+    Returns (report, the counted run's recorded cases, its launches)."""
+    root = Path(db).parent
+    ckpt = root / "checkpoints"
+
+    def run(name, *extra):
+        out = root / name
+        t0 = time.perf_counter()
+        rc, mapper = capture_mapper(lambda: cli.main(
+            ["mapper", "--database_path", str(db), "--output_path",
+             str(out), *extra]))
+        seconds = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"mapper ({name}) returned {rc}")
+        return {"model": out / "0", "seconds": seconds,
+                "stages": dict(mapper.timer.stages),
+                "reports": mapper.reports}
+
+    kernels.reset_launch_counts()
+    runs = {}
+    cases = record_cases(lambda: runs.update(first=run("first")))
+    launches = dict(kernels.LAUNCHES)
+    require_launched(launches, MAPPER_KERNELS, "mapper")
+    runs["second"] = run("second")
+    runs["checkpointed"] = run("checkpointed", "--checkpoint_dir", str(ckpt))
+    for path in ckpt.glob("stage_*.npz"):
+        if int(path.stem[len("stage_"):]) > 2:
+            path.unlink()
+    runs["resumed"] = run("resumed", "--checkpoint_dir", str(ckpt))
+    if "relative pose estimation" in runs["resumed"]["stages"]:
+        raise AssertionError("mapper: the resumed run ran stage 2")
+    first = model_bytes(runs["first"]["model"])
+    for name in ("second", "checkpointed", "resumed"):
+        if model_bytes(runs[name]["model"]) != first:
+            raise AssertionError(f"mapper: the {name} run wrote other "
+                                 "bytes than the first")
+    model = read_model(str(runs["first"]["model"]))
+    counts = model_counts(model)
+    xyz = np.stack([p[0] for p in model[2].values()])
+    err = model_center_errors(model, names_gt)
+    share = counts["observations"] / num_keypoints
+    if not (counts["images"] >= MAPPER_MIN_IMAGES and np.isfinite(xyz).all()
+            and err.max() < GP_CENTER_BOUND and share >= KEYPOINT_ORACLE):
+        raise AssertionError(f"mapper: {counts}, center error {err.max()}, "
+                             f"keypoint share {share}")
+    reports = runs["first"]["reports"]
+    report = {
+        "runs": {n: {"seconds": r["seconds"], "stages_s": r["stages"]}
+                 for n, r in runs.items()},
+        "byte_identical": ["second", "checkpointed", "resumed"],
+        "resumed_from": "stage_02.npz", "out": counts,
+        "center_error": {"max": float(err.max()),
+                         "median": float(np.median(err))},
+        "center_bound": GP_CENTER_BOUND, "keypoint_share": share,
+        "keypoint_oracle": KEYPOINT_ORACLE, "launches": launches,
+        "front_end": {k: reports[k] for k in (
+            "preprocessing", "view graph calibration",
+            "relative pose estimation") if k in reports},
+        "card": card}
+    return report, cases, launches
+
+
+def mapper_phase(dev, card):
+    """Phase 9: (report, {path: (recorded kernel inputs, launches)} of the
+    card's calibration in (b) and the counted `mapper` run in (d))."""
+    t_phase = time.perf_counter()
+    db, names_gt, pair_gt, a = mapper_database(MAPPER_DIR)
+    print(f"# database: {a['bytes']} bytes in {a['write_s']:.2f} s",
+          file=sys.stderr)
+    scene, vg, a["ingest_s"] = ingest(db)
+    b, calib_cases, calib_launches = front_end_vs_cpu(scene, vg, dev)
+    print(f"# front end vs CPU: {json.dumps(b)}", file=sys.stderr)
+    check_front_end(b)
+    c = relpose_counted(scene, vg, pair_gt, dev)
+    print(f"# relpose: {c['seconds']:.2f} s, {c['chunks']} chunks, "
+          f"{c['round']['launches']} launches a round", file=sys.stderr)
+    d, cases, launches = mapper_command(db, names_gt, scene.num_keypoints,
+                                        dev, card)
+    print(f"# mapper: {d['runs']['first']['seconds']:.2f} s a run",
+          file=sys.stderr)
+    report = {"database": a, "front_end_vs_cpu": b, "relpose": c,
+              "command": d, "phase_seconds": time.perf_counter() - t_phase}
+    return report, {"view_graph_calibration": (calib_cases, calib_launches),
+                    "mapper": (cases, launches)}
 
 
 def main() -> int:
@@ -2366,6 +2798,19 @@ def main() -> int:
     stage_launches["rotation_averaging"] = ra_launches
     del ra_cases
 
+    # phase 9: the mapper command from a COLMAP database of the sweep scene
+    mapper, mapper_paths = mapper_phase(dev, card)
+    for path, (path_cases, path_launches) in mapper_paths.items():
+        per_stage[path] = {n: ([], []) for n in MAPPER_KERNELS
+                           if path == "mapper"
+                           or any(k[0] == n for k in path_cases)}
+        for (name, *_), (args, calls) in path_cases.items():
+            res = measure_case(name, args, gen, peak_bw, peak_flops)
+            per_stage[path][name][0].append(res)
+            per_stage[path][name][1].append(calls)
+        stage_launches[path] = path_launches
+    del mapper_paths
+
     paths = [("ba", per_kernel, launches),
              ("inlier_sweep", per_sweep, sweep_launches)] + \
         [(p, per_stage[p], stage_launches[p]) for p in per_stage]
@@ -2410,6 +2855,7 @@ def main() -> int:
     print(json.dumps({"mapper_resume": resume}))
     print(json.dumps({"stage_7": {**retri, "card": card}}))
     print(json.dumps({"stage_3": {**ra, "card": card}}))
+    print(json.dumps({"mapper": mapper}))
     print(card)
     # the run used one card
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,13 @@
-"""CLI: glomap_tpu_torch mapper_resume and rotation_averager.
+"""CLI: glomap_tpu_torch mapper, mapper_resume and rotation_averager.
 
 Counterpart of glomap_tpu/cli.py (the reference's glomap/glomap.cc and
-exe/, RunMapperResume :108, the rotation averager's command) with the
-same dotted flag surface as the reference's OptionManager
-(--BundleAdjustment.optimize_principal_point=1 etc.; config.py holds the
-whole registry):
+exe/: RunMapper :16, RunMapperResume :108, the rotation averager's
+command) with the same dotted flag surface as the reference's
+OptionManager (--BundleAdjustment.optimize_principal_point=1 etc.;
+config.py holds the whole registry):
 
+    python -m glomap_tpu_torch.cli mapper --database_path DB \\
+        --output_path O [--image_path I] [--checkpoint_dir D] [--device cpu]
     python -m glomap_tpu_torch.cli mapper_resume --input_path M \\
         --output_path O [--checkpoint_dir D] [--device cpu]
     python -m glomap_tpu_torch.cli rotation_averager --relpose_path R \\
@@ -14,8 +16,8 @@ whole registry):
 
 The solvers run on the CUDA card unless --device names another device;
 without a card and without --device cpu a command fails before it reads
-its input. The `mapper` command and --distributed are not ported yet
-(ROADMAP A11, A12).
+its input. --distributed is not ported yet (ROADMAP A12): like any flag
+the commands do not know, it exits with 2.
 """
 
 from __future__ import annotations
@@ -151,9 +153,50 @@ def _registry_epilog(opt) -> str:
     return "\n".join(lines)
 
 
+def _device_or_exit(name):
+    """The solvers' device, or None after printing why there is none."""
+    from glomap_tpu_torch.device import resolve_device
+    try:
+        return resolve_device(name)
+    except RuntimeError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return None
+
+
+def run_mapper(args, extra):
+    from glomap_tpu_torch.controllers.global_mapper import GlobalMapper
+    from glomap_tpu_torch.io.convert import (database_to_scene,
+                                             write_reconstruction)
+    from glomap_tpu_torch.io.database import read_database
+
+    opt = _apply_dotted_flags(cfg.GlobalMapperOptions(), extra)
+    if args.checkpoint_dir:
+        opt.checkpoint_dir = args.checkpoint_dir
+    device = _device_or_exit(args.device)
+    if device is None:
+        return 1
+    mapper = GlobalMapper(opt, device=device)
+    logging.info("Loading database %s", args.database_path)
+    with mapper.timer.stage("read database"):
+        scene, vg = database_to_scene(read_database(args.database_path))
+    tracks = mapper.solve(scene, vg)
+    if tracks is None:
+        print("mapper failed", file=sys.stderr)
+        return 1
+    if args.image_path:
+        from glomap_tpu_torch.processors.color_extraction import (
+            extract_colors)
+        with mapper.timer.stage("extract colors"):
+            extract_colors(scene, tracks, args.image_path)
+    with mapper.timer.stage("write model"):
+        dirs = write_reconstruction(args.output_path, scene, tracks,
+                                    binary=args.output_format == "bin")
+    print(f"Reconstruction written to: {', '.join(dirs)}")
+    return 0
+
+
 def run_mapper_resume(args, extra):
     from glomap_tpu_torch.controllers.global_mapper import GlobalMapper
-    from glomap_tpu_torch.device import resolve_device
     from glomap_tpu_torch.io.convert import (model_to_scene,
                                              write_reconstruction)
     from glomap_tpu_torch.scene.view_graph import ViewGraph
@@ -161,10 +204,8 @@ def run_mapper_resume(args, extra):
     opt = _apply_dotted_flags(cfg.mapper_resume_options(), extra)
     if args.checkpoint_dir:
         opt.checkpoint_dir = args.checkpoint_dir
-    try:
-        device = resolve_device(args.device)
-    except RuntimeError as e:
-        print(f"error: {e}", file=sys.stderr)
+    device = _device_or_exit(args.device)
+    if device is None:
         return 1
     mapper = GlobalMapper(opt, device=device)
     with mapper.timer.stage("read model"):
@@ -183,7 +224,6 @@ def run_mapper_resume(args, extra):
 def run_rotation_averager(args, extra):
     from glomap_tpu_torch.controllers.rotation_averager import (
         RotationAveragerOptions, solve_rotation_averaging)
-    from glomap_tpu_torch.device import resolve_device
     from glomap_tpu_torch.estimators.gravity_refinement import refine_gravity
     from glomap_tpu_torch.io import pose_io
     from glomap_tpu_torch.scene.arrays import Scene
@@ -191,10 +231,8 @@ def run_rotation_averager(args, extra):
     opts = RotationAveragerOptions()
     opts.use_gravity = bool(args.gravity_path)
     _apply_dotted_flags(opts, extra, flat_ok=True)
-    try:
-        device = resolve_device(args.device)
-    except RuntimeError as e:
-        print(f"error: {e}", file=sys.stderr)
+    device = _device_or_exit(args.device)
+    if device is None:
         return 1
     scene = Scene()
     vg = pose_io.read_rel_pose(args.relpose_path, scene)
@@ -223,6 +261,22 @@ def main(argv=None):
         description="Global structure-from-motion on PyTorch and CUDA "
                     "(the port of glomap_tpu)")
     sub = parser.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("mapper", help="full global SfM from a COLMAP db",
+                       epilog=_registry_epilog(cfg.GlobalMapperOptions()),
+                       formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--database_path", required=True)
+    p.add_argument("--output_path", required=True)
+    p.add_argument("--image_path", default="",
+                   help="the images, for the points' colors (needs PIL)")
+    p.add_argument("--output_format", default="bin", choices=["bin", "txt"])
+    p.add_argument("--checkpoint_dir", default="",
+                   help="write stage_NN.npz after every pipeline stage "
+                        "and auto-resume from the latest on restart")
+    p.add_argument("--device", default=None,
+                   help="torch device of the solvers (default: the CUDA "
+                        "card; 'cpu' runs the plain PyTorch path in f64)")
+    p.set_defaults(func=run_mapper)
 
     p = sub.add_parser("mapper_resume",
                        help="resume from an existing reconstruction "

@@ -2,7 +2,11 @@
 
 Counterpart of glomap_tpu/controllers/global_mapper.py (GlobalMapper.solve),
 itself the counterpart of glomap/controllers/global_mapper.{h,cc}
-(GlobalMapper::Solve, :19-361). The port runs stage 3 (rotation
+(GlobalMapper::Solve, :19-361). The port runs stage 0 (preprocessing:
+sparsification, the pair-configuration update and the relative-pose
+decomposition), stage 1 (view-graph calibration), stage 2 (relative pose
+estimation: the batched LO-RANSAC, the inlier sweep, the two inlier
+filters and the largest connected component), stage 3 (rotation
 averaging: two solves, each followed by the rotation filter and the
 largest connected component), stage 4 (track
 establishment), stage 5 (global positioning and its filters), stage 6
@@ -13,9 +17,7 @@ observations changed), the deregistration of frames left without
 observations, and stage 8 (pruning), with the same thresholds and
 budgets, and stage-boundary checkpoints: with options.checkpoint_dir set,
 stage_NN.npz holds the exact state after stage NN, and the next run
-resumes at NN + 1.
-
-Stages 0-2 are not ported yet. Options that would run one raise
+resumes at NN + 1. The multi-device solvers (device_mesh_shape) raise
 NotImplementedError before any stage runs, naming the ROADMAP item.
 """
 
@@ -40,9 +42,14 @@ from glomap_tpu_torch.device import resolve_device
 from glomap_tpu_torch.estimators import global_positioning as gpm
 from glomap_tpu_torch.estimators.bundle_adjustment import (
     solve_bundle_adjustment)
+from glomap_tpu_torch.estimators.relpose import estimate_relative_poses
+from glomap_tpu_torch.estimators.view_graph_calibration import (
+    calibrate_view_graph)
 from glomap_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
+from glomap_tpu_torch.processors import pair_inliers
 from glomap_tpu_torch.processors import relpose_filter as rpf
 from glomap_tpu_torch.processors import track_filter as tf
+from glomap_tpu_torch.processors import view_graph_manipulation as vgm
 from glomap_tpu_torch.processors.normalization import normalize_reconstruction
 from glomap_tpu_torch.processors.pruning import prune_weakly_connected_images
 from glomap_tpu_torch.processors.undistortion import undistort_images
@@ -52,12 +59,6 @@ from glomap_tpu_torch.utils.profiling import StageTimer, device_clock
 
 logger = logging.getLogger(__name__)
 
-# (stage, its skip option, its name, the ROADMAP item that ports it)
-UNPORTED_STAGES = (
-    (0, "skip_preprocessing", "preprocessing", "A10"),
-    (1, "skip_view_graph_calibration", "view graph calibration", "A10"),
-    (2, "skip_relative_pose_estimation", "relative pose estimation", "A10"),
-)
 # stage 7's refinement rounds (colmap ba_global_max_refinements) and their
 # exit: the net change of the valid observations under this share
 RETRIANGULATION_ROUNDS = 5
@@ -91,11 +92,6 @@ class GlobalMapper:
         start_stage, state = 0, None
         if opt.checkpoint_dir:
             start_stage, state = _latest_checkpoint(opt.checkpoint_dir)
-        for idx, flag, name, item in UNPORTED_STAGES:
-            if start_stage <= idx and not getattr(opt, flag):
-                raise NotImplementedError(
-                    f"stage {idx} ({name}) is not ported yet (ROADMAP "
-                    f"{item}); set {flag}")
         if state is not None:
             tracks = _resume_into(state, scene, view_graph, tracks)
         if start_stage <= 7 and not opt.skip_retriangulation:
@@ -106,8 +102,25 @@ class GlobalMapper:
                 _write_stage_checkpoint(opt.checkpoint_dir, idx, scene,
                                         view_graph, tracks)
 
-        for idx in range(3):  # stages 0-2 are skipped (checked above)
-            ckpt(idx)
+        # 0. Preprocessing
+        if start_stage <= 0 and not opt.skip_preprocessing:
+            with self.timer.stage("preprocessing"):
+                self.preprocessing(scene, view_graph)
+        ckpt(0)
+
+        # 1. View graph calibration
+        if start_stage <= 1 and not opt.skip_view_graph_calibration:
+            with self.timer.stage("view graph calibration"):
+                if not self.view_graph_calibration(scene, view_graph):
+                    return None
+        ckpt(1)
+
+        # 2. Relative pose estimation
+        if start_stage <= 2 and not opt.skip_relative_pose_estimation:
+            with self.timer.stage("relative pose estimation"):
+                if not self.relative_pose_estimation(scene, view_graph):
+                    return None
+        ckpt(2)
 
         # 3. Rotation averaging (a filter pass and a final pass)
         if start_stage <= 3 and not opt.skip_rotation_averaging:
@@ -157,6 +170,70 @@ class GlobalMapper:
 
         logger.info("stage summary:\n%s", self.timer.summary())
         return tracks
+
+    def preprocessing(self, scene: Scene, vg: ViewGraph) -> None:
+        """Stage 0: sparsify the view graph (when
+        sparsify_expected_degree > 0), promote the UNCALIBRATED pairs
+        between majority-calibrated cameras, and re-derive the relative
+        poses from E and H."""
+        opt, dev = self.options, self.device
+        t0 = device_clock(dev)
+        rep = {"sparsified_pairs": 0}
+        if opt.sparsify_expected_degree > 0:
+            rep["sparsified_pairs"] = vgm.sparsify_graph(
+                vg, scene, opt.sparsify_expected_degree)
+        rep["promoted_pairs"] = vgm.update_image_pairs_config(scene, vg)
+        rep["decomposition"] = {}
+        vgm.decompose_rel_pose(scene, vg, device=dev, dtype=self.dtype,
+                               stats=rep["decomposition"])
+        rep["seconds"] = device_clock(dev) - t0
+        self.reports["preprocessing"] = rep
+
+    def view_graph_calibration(self, scene: Scene, vg: ViewGraph) -> bool:
+        """Stage 1: the focals of the cameras without a prior, from the F
+        matrices; False when the solve diverges."""
+        dev = self.device
+        t0 = device_clock(dev)
+        rep = {}
+        ok = calibrate_view_graph(scene, vg, self.options.opt_vgcalib,
+                                  dtype=self.dtype, device=dev, stats=rep)
+        rep["seconds"] = device_clock(dev) - t0
+        self.reports["view graph calibration"] = rep
+        return ok
+
+    def relative_pose_estimation(self, scene: Scene, vg: ViewGraph) -> bool:
+        """Stage 2: lift the keypoints, estimate every pair's relative
+        pose, classify every match (the inlier sweep), filter the pairs
+        by inlier count and ratio, and keep the largest connected
+        component; False when no component is left."""
+        opt, dev = self.options, self.device
+        thr = opt.inlier_thresholds
+        t0 = device_clock(dev)
+        undistort_images(scene, device=dev)
+        t1 = device_clock(dev)
+        relpose = {}
+        estimate_relative_poses(scene, vg, opt.opt_relpose, dtype=self.dtype,
+                                device=dev, stats=relpose)
+        t2 = device_clock(dev)
+        pair_inliers.image_pairs_inlier_count(scene, vg, thr, device=dev,
+                                              dtype=self.dtype)
+        t3 = device_clock(dev)
+        filtered = {"inlier_num": rpf.filter_inlier_num(
+                        vg, thr.min_inlier_num),
+                    "inlier_ratio": rpf.filter_inlier_ratio(
+                        vg, thr.min_inlier_ratio)}
+        valid = int(vg.pair_valid.sum())
+        num_img = vg.keep_largest_connected_component(scene)
+        filtered["largest_component"] = valid - int(vg.pair_valid.sum())
+        self.reports["relative pose estimation"] = {
+            "seconds": device_clock(dev) - t0, "undistort_s": t1 - t0,
+            "estimate_s": t2 - t1, "inlier_count_s": t3 - t2,
+            "relpose": relpose, "pairs_filtered": filtered,
+            "component_images": num_img}
+        if num_img == 0:
+            logger.error("no connected components are found")
+            return False
+        return True
 
     def rotation_averaging(self, scene: Scene, vg: ViewGraph) -> bool:
         """Stage 3: rotation averaging, the rotation filter and the

@@ -6,7 +6,8 @@
 * With device=None and no CUDA, the entry point raises instead of
   running on the CPU.
 * A kernel whose build fails raises; its CUDA launch never hands back
-  the plain version's result, and neither does stage 7's triangulation.
+  the plain version's result, and neither does stage 7's triangulation
+  nor the `mapper` command, which lets the error out before it writes.
   The native track engine's loader raises when g++ fails, for the track
   engine and for the connected components of the strong clustering
   alike: it has no Python fallback.
@@ -275,3 +276,27 @@ def test_native_build_failure_raises(monkeypatch, tmp_path, fault):
         native.establish_tracks(4, np.array([0, 2]), np.array([1, 3]))
     assert native._lib is None
     assert not list((tmp_path / "native").glob("*.so*"))
+
+
+def test_mapper_command_raises_when_build_fails(broken_build, monkeypatch,
+                                                tmp_path):
+    """The `mapper` command with every kernel wrapper on its launch path
+    (as on the card) and every build failing: the first kernel of the
+    path (B3, in stage 1's normal equations) raises out of the command;
+    no stage catches it, and no model is written."""
+    from glomap_tpu_torch import cli
+    from glomap_tpu_torch.io.database import write_database
+    from glomap_tpu_torch.utils.synthetic import (SyntheticOptions,
+                                                  synthesize_dataset)
+    for name, launch, _ in _launch_cases():
+        monkeypatch.setattr(kernels, name, launch)
+    scene, vg, _ = synthesize_dataset(SyntheticOptions(
+        num_frames_per_rig=4, num_points3D=60, seed=2))
+    db = str(tmp_path / "db.sqlite")
+    write_database(db, scene, vg)
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(_BuildFailed):
+        cli.main(["mapper", "--database_path", db, "--output_path",
+                  str(tmp_path / "out"), "--device", "cpu"])
+    assert kernels.LAUNCHES == before
+    assert not (tmp_path / "out").exists()

@@ -9,12 +9,12 @@ CLI against the JAX package's, both on the CPU (the port in f64).
   clusters; where two clusters share two weak links the port merges them,
   as the reference does, and the JAX package does not (ROADMAP C.6).
 * GlobalMapper: resumed from a JAX run's stage_04.npz with poisoned
-  inputs, it ends where the JAX run ends; a stage it has not ported
-  raises before any stage runs.
+  inputs, it ends where the JAX run ends; the multi-device solvers, not
+  ported, raise before any stage runs.
 * cli mapper_resume: the same JAX-written model through both packages'
   CLI gives the same images, points and tracks, and centers to 1e-6 of
-  the extent; without CUDA and without --device cpu the port fails
-  before it reads the model.
+  the extent; without CUDA and without --device cpu the port's
+  mapper_resume and mapper fail before they read their input.
 """
 
 import os
@@ -117,6 +117,17 @@ def test_misspelt_flag_exits_2(flag, capsys):
 def test_registry_epilog_matches_jax():
     assert tcli._registry_epilog(tcfg.mapper_resume_options()) == \
         jcli._registry_epilog(jcfg.mapper_resume_options())
+
+
+def test_mapper_help_epilog_matches_jax(capsys):
+    """`mapper --help` prints the JAX package's flag registry."""
+    assert tcli._registry_epilog(tcfg.GlobalMapperOptions()) == \
+        jcli._registry_epilog(jcfg.GlobalMapperOptions())
+    with pytest.raises(SystemExit) as e:
+        tcli.main(["mapper", "--help"])
+    assert e.value.code == 0
+    assert "--RelPoseEstimation.num_hypotheses (default: 1024)" in \
+        capsys.readouterr().out
 
 
 # ----------------------------------------------------------------------------
@@ -292,14 +303,11 @@ def test_controller_resumes_from_jax_stage_04(jax_run, tmp_path):
     assert sorted(p.name for p in ckpt.glob("stage_*.npz")) == written
 
 
-@pytest.mark.parametrize("stage", range(len(tgm.UNPORTED_STAGES) + 1))
-def test_unported_stage_raises_before_any_stage(tmp_path, stage):
+def test_unported_stage_raises_before_any_stage(tmp_path):
+    """The multi-device solvers (ROADMAP A12) are the one part of the
+    pipeline not ported: asking for them raises before any stage runs."""
     opts = _stage_options(tcfg, tmp_path / "ckpt")
-    if stage < len(tgm.UNPORTED_STAGES):
-        _, flag, _, item = tgm.UNPORTED_STAGES[stage]
-        setattr(opts, flag, False)
-    else:
-        opts.device_mesh_shape, item = (4,), "A12"
+    opts.device_mesh_shape, item = (4,), "A12"
     scene = scene_from_jax(synthesize_dataset(SyntheticOptions(
         num_frames_per_rig=4, num_points3D=40))[0])
     before = scene.frame_trans.copy()
@@ -353,8 +361,8 @@ def test_cli_without_cuda_fails_before_reading(monkeypatch, tmp_path,
 
 
 def test_cli_module_entry_point(tmp_path):
-    """`python -m glomap_tpu_torch.cli`: mapper_resume without a card
-    exits non-zero; the command not ported is rejected by argparse."""
+    """`python -m glomap_tpu_torch.cli`: mapper_resume and mapper without
+    a card exit with 1 and name CUDA, before they read their input."""
     env = {k: v for k, v in os.environ.items()
            if k not in ("PYTHONPATH", "CUDA_VISIBLE_DEVICES")}
     env["CUDA_VISIBLE_DEVICES"] = ""
@@ -365,9 +373,13 @@ def test_cli_module_entry_point(tmp_path):
                          cwd=ROOT, env=env, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 1 and "CUDA" in out.stderr
-    with pytest.raises(SystemExit) as e:
-        tcli.main(["mapper", "--output_path", str(tmp_path)])
-    assert e.value.code == 2
+    out = subprocess.run(base + ["mapper", "--database_path",
+                                 str(tmp_path / "no.db"), "--output_path",
+                                 str(tmp_path / "out")],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 1 and "CUDA" in out.stderr
+    assert not (tmp_path / "out").exists()
 
 
 # ----------------------------------------------------------------------------
