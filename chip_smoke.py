@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's global bundle adjustment, stage-2 inlier
-sweep, stages 0-7 of the mapper and its mapper, mapper_resume and
-rotation_averager commands on one NVIDIA card, check every kernel against
-its plain PyTorch version, and time it.
+sweep, stages 0-7 of the mapper, its mapper, mapper_resume and
+rotation_averager commands and its partitioned BA and GP on one NVIDIA
+card, check every kernel against its plain PyTorch version, and time it.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -170,17 +170,44 @@ Phases (each raises on failure; the exit code is then non-zero):
               points, centers within 0.15 of the generator's by image
               name, and the keypoint oracle (98%).
 
+10. partitioned -- the partition-aware solvers (glomap_tpu_torch/
+              parallel/) at the 1DSfM scale. (a) The sequential capture
+              at its defaults (800 frames, 60,000 points, 3,000
+              keypoints an image, seed 1) with 0.5 px of noise; stage 4's
+              tracks triangulated on the card; BA's poses and points
+              perturbed as tests/test_bundle_adjustment.py's _prepare
+              does, GP from the generator's rotations; the spectral
+              partition into 4 parts timed. (b) BA, 10 LM iterations with
+              no early exit, three ways: solve_bundle_adjustment; 4 parts
+              on a world of one rank under NCCL (twice, bit for bit);
+              4 parts on two ranks under gloo, two processes on the one
+              card (NCCL runs no two ranks on one device), whose results
+              must have the same bits on both ranks. The cost at the
+              shared start within a bound derived from its order of
+              operations, the final costs within PART_BA_COST_RTOL, the
+              Sim3-aligned centers within 1e-3 of the span; LM it/s,
+              parts, cut fraction, points and observations per part, and
+              the all_reduce bytes per LM iteration counted beside the
+              JAX package's formula. (c) GP the same three ways: centers
+              within 1e-3 of the span. (d) Every kernel input of one
+              partitioned BA and one partitioned GP LM iteration is
+              recorded, checked and timed like phase 2 (the `partitioned`
+              path of the kernels line); B1-B6 must launch on the counted
+              partitioned runs; each kernel on an empty axis gives zeros.
+
 Output: the {"kernels": [...]} line (seven kernels; each path's numbers
 under "paths"), a {"slice": ...} line, an {"inlier_sweep": ...} line, a
 {"stages_4_6": ...} line, a {"mapper_resume": ...} line, a {"stage_7":
 ...} line, a {"stage_3": ...} line, a {"mapper": ...} line (its runs'
-StageTimer seconds: read database, stages 0-7, write model), the card's
-name and power limit, and last {"ok": true, "device": {...}}. Without a
-CUDA device it prints no result and exits 1.
+StageTimer seconds: read database, stages 0-7, write model), a
+{"partitioned": ...} line, the card's name and power limit, and last
+{"ok": true, "device": {...}}. Without a CUDA device it prints no result
+and exits 1.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import shutil
@@ -200,8 +227,11 @@ from glomap_tpu_torch.config import GlobalMapperOptions
 from glomap_tpu_torch.controllers.global_mapper import (
     GlobalMapper, deregister_unsupported)
 from glomap_tpu_torch.controllers.retriangulation import retriangulate_tracks
+from glomap_tpu_torch.controllers.track_establishment import (
+    establish_full_tracks, find_tracks_for_problem)
 from glomap_tpu_torch.controllers.rotation_averager import (
     RotationAveragerOptions, solve_rotation_averaging)
+from glomap_tpu_torch.estimators import bundle_adjustment as tba
 from glomap_tpu_torch.estimators import global_positioning as gpm
 from glomap_tpu_torch.estimators.bundle_adjustment import (
     _solve_ba, solve_bundle_adjustment)
@@ -212,6 +242,7 @@ from glomap_tpu_torch.estimators.rotation_averaging import (
 from glomap_tpu_torch.estimators.view_graph_calibration import (
     calibrate_view_graph)
 from glomap_tpu_torch.io import pose_io
+from glomap_tpu_torch.io.checkpoint import save_checkpoint
 from glomap_tpu_torch.io.colmap_model import read_model
 from glomap_tpu_torch.io.convert import (database_to_scene, scene_to_model,
                                          write_reconstruction)
@@ -223,6 +254,8 @@ from glomap_tpu_torch.math.sim3 import apply_sim3, umeyama_alignment
 from glomap_tpu_torch.ops import _build, kernels, linear
 from glomap_tpu_torch.ops import triangulation as tri
 from glomap_tpu_torch.ops import camera_models as cm
+from glomap_tpu_torch.parallel import dryrun, multihost
+from glomap_tpu_torch.parallel.partitioned_ba import partition_points
 from glomap_tpu_torch.processors import pair_inliers, relpose_filter
 from glomap_tpu_torch.processors import view_graph_manipulation as vgmp
 from glomap_tpu_torch.processors.undistortion import undistort_images
@@ -230,7 +263,9 @@ from glomap_tpu_torch.scene import view_graph as vgm
 from glomap_tpu_torch.scene.arrays import Scene, Tracks
 from glomap_tpu_torch.utils.carry import ba_inputs_from_arrays
 from glomap_tpu_torch.utils.profile_sweep import SWEEP_OPTIONS, sweep_problem
-from glomap_tpu_torch.utils.synthetic import synthesize_gravity
+from glomap_tpu_torch.utils.synthetic import (
+    SequentialCaptureOptions, synthesize_gravity,
+    synthesize_sequential_dataset)
 
 BENCH_CACHE = Path(__file__).resolve().parent / ".bench_cache.npz"
 # bench.py's settings: the throughput run forces every LM iteration
@@ -429,6 +464,37 @@ RELPOSE_MEDIAN_DEG, RELPOSE_UNDER_2DEG = 0.5, 0.85
 MAPPER_MIN_IMAGES = 99
 # the kernels on the mapper's path (B1-B7)
 MAPPER_KERNELS = tuple(REPLACES)
+# phase 10: the partitioned solvers on the sequential capture at its
+# defaults (800 frames, 60,000 points, 3,000 keypoints an image, seed 1)
+# with bench_e2e.py's 0.5 px, on 4 parts; BA 10 LM iterations with no early
+# exit (function tolerance 0, as bench.py), GP with its defaults from the
+# generator's rotations. Files under build/ (git-ignored).
+PART_OPTIONS = dict(point2D_stddev=0.5)
+PART_PARTS = 4
+PART_BA_ITERS = 10
+# GP's LM cap: runs that round in other orders must each stop on the
+# function tolerance to be compared, and the default 100 can cut one short
+# (on the card the three runs stopped after 98, 102 and 100 iterations; a
+# 40-frame capture in f32 on the CPU after ~220, at 100 still 0.29-0.86
+# from the generator's centers on a ring of radius 50, converged 0.0087)
+PART_GP_ITERS = 1000
+PART_DIR = Path(__file__).resolve().parent / "build" / "partitioned"
+PART_WORLD_TIMEOUT = 600.0
+# the runs' frame centers, Sim3-aligned, against the unpartitioned run's:
+# within this share of the span of its centers (tests/test_parallel.py:215
+# compares GP's unaligned in f64; in f32 converged runs part along GP's
+# gauge of scale and translation, so the unaligned gap is reported beside)
+PART_CENTER_SPAN = 1e-3
+# partitioned BA's cost after PART_BA_ITERS LM iterations against the
+# unpartitioned run's. The two differ only in the order of their sums (the
+# points' order, a rank's stack, the all_reduce of the ranks' partials),
+# which the CG and the LM steps carry on. A measured bound, not a derived
+# one: on an NVIDIA H100 80GB HBM3 (700 W) one rank under NCCL gave the
+# same f32 cost, two ranks under gloo 1.1e-7 relative; both sides are
+# deterministic; the bound leaves 9x. Beside it, ba_cost_at_start holds
+# the cost at the shared initial state within a bound derived from its
+# order of operations (sum_depth_bound).
+PART_BA_COST_RTOL = 1e-6
 
 
 def card_line() -> str:
@@ -990,10 +1056,20 @@ def _path_summary(cases, calls, launches):
         if any(c[k] is None for c, _ in on):
             return None
         return sum(c[k] * w for c, w in on) / n
-    return dict(launches=launches, ms=mean("ms"), plain_ms=mean("plain_ms"),
-                bound_ms=mean("bound_ms"), library_ms=mean("library_ms"),
-                bound_by="bytes" if all(c["bound_by"] == "bytes"
-                                        for c, _ in on) else "operations")
+    out = dict(launches=launches, ms=mean("ms"), plain_ms=mean("plain_ms"),
+               bound_ms=mean("bound_ms"), library_ms=mean("library_ms"),
+               bound_by="bytes" if all(c["bound_by"] == "bytes"
+                                       for c, _ in on) else "operations")
+    lib = [(c, w) for c, w in on if c["library_ms"] is not None]
+    if lib and len(lib) < len(on):
+        # B4: a library call only on its one-segment (camera) inputs, so
+        # the kernel's time there beside it
+        nl = sum(w for _, w in lib)
+        out["where_library"] = {
+            "share_of_calls": nl / n,
+            "ms": sum(c["ms"] * w for c, w in lib) / nl,
+            "library_ms": sum(c["library_ms"] * w for c, w in lib) / nl}
+    return out
 
 
 def kernel_summary(name, paths):
@@ -1178,9 +1254,7 @@ def center_errors(scene, gt_centers) -> np.ndarray:
     """Distances of the registered frames' centers, Sim3-aligned by
     umeyama_alignment, to their ground truth."""
     reg = scene.frame_registered
-    est, gt = scene.frame_centers()[reg], gt_centers[reg]
-    s, R, t = umeyama_alignment(est, gt)
-    return np.linalg.norm(apply_sim3(s, R, t, est) - gt, axis=-1)
+    return aligned_center_errors(scene.frame_centers()[reg], gt_centers[reg])
 
 
 def _state(scene, tracks):
@@ -1640,6 +1714,34 @@ def stage_7(scene, vg, tracks, device):
     return sc, out, mapper.reports["retriangulation"]
 
 
+def profiled(fn, dev=None) -> tuple:
+    """fn() once under torch.profiler, the card synchronised before and
+    after: (its result, the wall ms of the call, the profile). On the CPU
+    (dev "cpu", a rehearsal) the profile holds no device event."""
+    cuda = dev is None or torch.device(dev).type == "cuda"
+    acts = [torch.profiler.ProfilerActivity.CPU] + (
+        [torch.profiler.ProfilerActivity.CUDA] if cuda else [])
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    sync()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return out, wall_ms, prof
+
+
+def device_events(prof) -> list:
+    """The device (kernel and copy) events of a profile."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def device_ms(prof) -> float:
+    """The summed device ms of a profile's device events (0 if none)."""
+    return sum(e.time_range.elapsed_us() for e in device_events(prof)) / 1e3
+
+
 def _events_ms(fn, reps: int = 10) -> float:
     """Device ms per call of fn by CUDA events (eigvalsh reads back its
     convergence info, so it cannot be captured in a graph)."""
@@ -1678,20 +1780,12 @@ def profile_retriangulation(scene, vg, dev) -> dict:
     the device time of the batched 3x3 solves (the kernels under the
     solve_ex and eigvalsh ops), and the device's busy share of the wall
     time."""
-    from torch.autograd import DeviceType
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        retriangulate_tracks(scene.copy(), vg, None, device=dev)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    _, wall_ms, prof = profiled(
+        lambda: retriangulate_tracks(scene.copy(), vg, None, device=dev))
     dev_ms = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            dev_ms[e.name] = dev_ms.get(e.name, 0.0) + \
-                e.time_range.elapsed_us() / 1e3
+    for e in device_events(prof):
+        dev_ms[e.name] = dev_ms.get(e.name, 0.0) + \
+            e.time_range.elapsed_us() / 1e3
     total = sum(dev_ms.values())
     solver = {e.key: getattr(e, "device_time_total",
                              getattr(e, "cuda_time_total", 0.0)) / 1e3
@@ -2416,7 +2510,6 @@ def check_front_end(fe: dict) -> None:
 def launches_per_round(scene, vg, dev) -> dict:
     """One RANSAC round on every pair under torch.profiler: its device
     kernels (launches) and device ms."""
-    from torch.autograd import DeviceType
     tab, mask, counts = relpose._pair_tables(scene, vg, 512, 1, dev,
                                              torch.float32)
     P = vg.num_pairs
@@ -2431,15 +2524,8 @@ def launches_per_round(scene, vg, dev) -> dict:
                           generator=gen, device=dev)
         return relpose._ransac_round(u, *args)
     one()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        one()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    _, wall_ms, prof = profiled(one)
+    kern = device_events(prof)
     dev_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
     by = {}
     for e in kern:
@@ -2454,7 +2540,6 @@ def relpose_counted(scene0, vg0, pair_gt, dev) -> dict:
     """(c) estimate_relative_poses on the card on the ingested scene
     (lifted): twice, bit for bit alike, then once under torch.profiler
     (the device's busy share); pose errors against the generator's."""
-    from torch.autograd import DeviceType
     scene = scene0.copy()
     undistort_images(scene, device=dev)
     runs = []
@@ -2470,15 +2555,9 @@ def relpose_counted(scene0, vg0, pair_gt, dev) -> dict:
     if not all(np.array_equal(getattr(vg, k), getattr(vg2, k)) for k in (
             "pair_quat", "pair_trans", "_relpose_budget")):
         raise AssertionError("estimate_relative_poses: two runs differ")
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        relpose.estimate_relative_poses(scene, vg0.copy(), device=dev)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    dev_ms = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA) / 1e3
+    _, wall_ms, prof = profiled(lambda: relpose.estimate_relative_poses(
+        scene, vg0.copy(), device=dev))
+    dev_ms = device_ms(prof)
     rot = np.degrees(rotm.host(rotm.relative_quat_angle_rad, vg.pair_quat,
                                pair_gt[0]))
     t_gt = pair_gt[1] / np.linalg.norm(pair_gt[1], axis=-1, keepdims=True)
@@ -2589,6 +2668,395 @@ def mapper_phase(dev, card):
               "command": d, "phase_seconds": time.perf_counter() - t_phase}
     return report, {"view_graph_calibration": (calib_cases, calib_launches),
                     "mapper": (cases, launches)}
+
+
+# ----------------------------------------------------------------------------
+# phase 10: the partitioned solvers at the 1DSfM scale
+# ----------------------------------------------------------------------------
+
+
+def partitioned_problem(dev, options=None):
+    """(a) The sequential capture, its tracks from stage 4 triangulated on
+    the card: (BA's scene and tracks, the poses perturbed as
+    tests/test_bundle_adjustment.py's _prepare does; GP's, the generator's
+    poses; the generator's frame centers; report)."""
+    opt = SequentialCaptureOptions(**(options or PART_OPTIONS))
+    t0 = time.perf_counter()
+    scene, vg, _ = synthesize_sequential_dataset(opt)
+    t1 = time.perf_counter()
+    undistort_images(scene, device=dev)
+    full = establish_full_tracks(scene, vg)
+    tracks = find_tracks_for_problem(scene, full)
+    t2 = time.perf_counter()
+    tri.triangulate_tracks(scene, tracks, device=dev)
+    t3 = time.perf_counter()
+    gt_centers = scene.frame_centers()
+    gp = (scene.copy(), tracks.copy())
+    rng = np.random.default_rng(0)
+    w = 0.01 * rng.standard_normal((scene.num_frames, 3))
+    scene.frame_quat = rotm.quat_normalize(rotm.quat_mul(
+        torch.from_numpy(scene.frame_quat),
+        rotm.so3_exp_quat(torch.from_numpy(w)))).numpy()
+    scene.frame_trans = scene.frame_trans + 0.01 * rng.standard_normal(
+        scene.frame_trans.shape)
+    tracks.xyz = tracks.xyz + 0.05 * rng.standard_normal(tracks.xyz.shape)
+    obs = int((tracks.obs_valid & tracks.valid[tracks.obs_track]).sum())
+    report = {"options": dataclasses.asdict(opt),
+              "frames": scene.num_frames, "pairs": vg.num_pairs,
+              "matches": vg.num_matches, "keypoints": scene.num_keypoints,
+              "tracks_full": full.num_tracks, "tracks": tracks.num_tracks,
+              "observations": obs, "generation_s": t1 - t0,
+              "stage4_s": t2 - t1, "triangulation_s": t3 - t2}
+    return (scene, tracks), gp, gt_centers, report
+
+
+def sum_depth_bound(O: int, parts: int) -> float:
+    """The rounding depth of BA's f32 cost, torch.sum over O per-observation
+    costs (bit for bit the same in every layout: elementwise kernels on
+    the same values), in one layout against another: a sum over O in
+    each order, or over one rank's share and then the all_reduce of the
+    ranks' partials (one add a rank)."""
+    return 2 * torch_sum_depth(O) + parts
+
+
+def aligned_center_errors(a, b) -> np.ndarray:
+    """The distances of a's centers, Sim3-aligned to b's, to b's."""
+    s, R, t = umeyama_alignment(a, b)
+    return np.linalg.norm(apply_sim3(s, R, t, a) - b, axis=1)
+
+
+def aligned_center_gap(a, b) -> float:
+    """The largest of aligned_center_errors over the span of b's."""
+    return float(aligned_center_errors(a, b).max()
+                 / np.linalg.norm(np.ptp(b, axis=0)))
+
+
+def raw_center_gap(a, b) -> float:
+    span = np.linalg.norm(np.ptp(b, axis=0))
+    return float(np.linalg.norm(a - b, axis=1).max() / span)
+
+
+def empty_axis_checks(dev) -> int:
+    """Each reduction and gather kernel on a zero-length observation axis
+    (a rank whose parts hold no observation) and on an axis of no
+    segment: zeros of the right shape, as the plain version gives.
+    Returns the number of inputs checked; their launches are not the
+    path's."""
+    saved = dict(kernels.LAUNCHES)
+    f32 = dict(dtype=torch.float32, device=dev)
+    none = torch.zeros(0, dtype=torch.int64, device=dev)
+    cases = []
+    for n_seg in (5, 0):
+        axis = kernels.SegmentAxis.build(none, n_seg)
+        J = torch.zeros((12, 0), **f32)
+        cases += [("rowsum", (torch.zeros((3, 0), **f32), axis)),
+                  ("pair_rowsum", (J, J, tba._gram_pairs(6, 6), axis)),
+                  ("gather", (torch.ones((n_seg, 3), **f32), axis)),
+                  ("gather_dot", (torch.ones((n_seg, 3), **f32),
+                                  torch.zeros((9, 0), **f32), axis))]
+    rows = [torch.zeros((k, 0), **f32) for k in (9, 9, 3, 3, 2, 16, 1)]
+    cases += [("huber_irls", (torch.zeros((2, 0), **f32), 1.0,
+                              torch.zeros(0, **f32))),
+              ("projection_resid_jac", tuple(rows) + (None,))]
+    for name, args in cases:
+        got = getattr(kernels, name)(*args)
+        want = _plain(name, args)
+        for g, w_ in zip(got if isinstance(got, tuple) else (got,),
+                         want if isinstance(want, tuple) else (want,)):
+            if g.shape != w_.shape or not torch.equal(g, w_.to(g.dtype)):
+                raise AssertionError(f"{name} on an empty axis: "
+                                     f"{tuple(g.shape)} vs "
+                                     f"{tuple(w_.shape)}")
+    torch.cuda.synchronize(dev) if dev.type == "cuda" else None
+    kernels.LAUNCHES.update(saved)
+    return len(cases)
+
+
+def part_ba_options(iters=PART_BA_ITERS):
+    return BundleAdjusterOptions(max_num_iterations=iters,
+                                 function_tolerance=0.0)
+
+
+def cusolver_probe(dev, num_tracks: int, num_pairs: int) -> dict:
+    """ROADMAP C.12: cuSOLVER's batched eigensolver on 32,768 or more
+    symmetric 3x3 matrices at once (whether it raises), the split
+    smallest_eigenvalues on the capture's track count, and the batched
+    SVD of calibration's fetzer_coefficients on its pair count."""
+    gen = torch.Generator().manual_seed(0)
+
+    def spd(n):
+        B = torch.randn((n, 3, 3), generator=gen).to(dev)
+        return B @ B.transpose(1, 2)
+
+    def runs(fn):
+        try:  # the probe records the library's refusal; the port splits
+            fn()
+            torch.cuda.synchronize(dev)
+            return "ok"
+        except RuntimeError as e:
+            return f"raises: {str(e)[:80]}"
+    A = spd(num_tracks)
+    return {"eigvalsh_16384": runs(lambda: torch.linalg.eigvalsh(
+                A[:16384])),
+            "eigvalsh_32768": runs(lambda: torch.linalg.eigvalsh(
+                A[:32768])),
+            f"smallest_eigenvalues_{num_tracks}": runs(
+                lambda: tri.smallest_eigenvalues(A)),
+            f"svd_{num_pairs}": runs(lambda: torch.linalg.svd(
+                torch.randn((num_pairs, 3, 3), generator=gen).to(dev)))}
+
+
+def part_gp_options():
+    return GlobalPositionerOptions(max_num_iterations=PART_GP_ITERS)
+
+
+def part_ba_run(solve, ba_input) -> dict:
+    """One BA solve on copies of BA's input; its stats, scene and tracks."""
+    sc, tr = ba_input[0].copy(), ba_input[1].copy()
+    st = {}
+    solve(sc, tr, st)
+    if not np.isfinite(st.get("cost", np.nan)):
+        raise AssertionError(f"phase 10: BA gave no finite cost: {st}")
+    return dict(st, centers=sc.frame_centers(), xyz=tr.xyz)
+
+
+def part_gp_run(solve, gp_input) -> dict:
+    sc, tr = gp_input[0].copy(), gp_input[1].copy()
+    st = {}
+    t0 = time.perf_counter()
+    if not solve(sc, tr, st):
+        raise AssertionError("phase 10: GP failed")
+    return dict(st, seconds=time.perf_counter() - t0,
+                centers=sc.frame_centers())
+
+
+def unpartitioned_runs(ba_input, gp_input, dev) -> dict:
+    """(b), (c): the single-device solves, and BA's cost at the start."""
+    def ba(iters):
+        def solve(sc, tr, st):
+            if not solve_bundle_adjustment(sc, tr, part_ba_options(iters),
+                                           device=dev, stats=st):
+                raise AssertionError("phase 10: BA failed")
+        return solve
+    return {"ba": part_ba_run(ba(PART_BA_ITERS), ba_input),
+            "ba_start": part_ba_run(ba(0), ba_input),
+            "gp": part_gp_run(lambda sc, tr, st: gpm.solve_global_positioning(
+                sc, vgm.ViewGraph(), tr, part_gp_options(), device=dev,
+                stats=st), gp_input)}
+
+
+def one_rank_runs(ba_input, gp_input, dev, backend) -> tuple:
+    """(b)-(d) on a world of one rank holding PART_PARTS parts (NCCL on the
+    card): BA twice, which must agree bit for bit, and its cost at the
+    start; GP; each counted. Then one BA and one GP LM iteration with
+    every kernel input recorded. Returns (runs, cases, launches)."""
+    store = PART_DIR / "store_one_rank"
+    store.unlink(missing_ok=True)
+    multihost.initialize(store.resolve().as_uri(), 1, 0, dev, backend)
+    try:
+        def ba(iters):
+            def solve(sc, tr, st):
+                if not solve_bundle_adjustment(
+                        sc, tr, part_ba_options(iters), device=dev,
+                        stats=st, num_parts=PART_PARTS):
+                    raise AssertionError("phase 10: partitioned BA failed")
+            return solve
+        runs = {}
+        # the first run counted (its first all_reduce also sets NCCL up),
+        # the second timed, the third profiled
+        kernels.reset_launch_counts()
+        first = part_ba_run(ba(PART_BA_ITERS), ba_input)
+        launches_ba = dict(kernels.LAUNCHES)
+        runs["ba"] = part_ba_run(ba(PART_BA_ITERS), ba_input)
+        # the busy share of the profiled run's own solve span, which
+        # holds every transfer and kernel of the solve
+        busy, _, prof = profiled(
+            lambda: part_ba_run(ba(PART_BA_ITERS), ba_input), dev)
+        dev_ms, solve_ms = device_ms(prof), busy["solve_seconds"] * 1e3
+        runs["ba"]["first_run_solve_seconds"] = first["solve_seconds"]
+        runs["ba"]["busy"] = {
+            "device_ms": dev_ms or "not measured",
+            "profiled_solve_ms": solve_ms,
+            "device_busy_share": dev_ms / solve_ms if dev_ms
+            else "not measured"}
+        if not (first["cost"] == runs["ba"]["cost"]
+                and np.array_equal(first["centers"], runs["ba"]["centers"])
+                and np.array_equal(first["xyz"], runs["ba"]["xyz"])):
+            raise AssertionError("phase 10: two NCCL runs of partitioned BA "
+                                 "differ")
+        runs["ba_start"] = part_ba_run(ba(0), ba_input)
+        kernels.reset_launch_counts()
+        runs["gp"] = part_gp_run(
+            lambda sc, tr, st: gpm.solve_global_positioning(
+                sc, vgm.ViewGraph(), tr, part_gp_options(), device=dev,
+                stats=st, num_parts=PART_PARTS), gp_input)
+        launches_gp = dict(kernels.LAUNCHES)
+        require_launched(launches_ba, BA_KERNELS, "partitioned BA")
+        require_launched(launches_gp, GP_KERNELS, "partitioned GP")
+        cases = record_cases(lambda: solve_bundle_adjustment(
+            ba_input[0].copy(), ba_input[1].copy(), part_ba_options(1),
+            device=dev, num_parts=PART_PARTS))
+        cases.update(record_cases(lambda: gpm.solve_global_positioning(
+            gp_input[0].copy(), vgm.ViewGraph(), gp_input[1].copy(),
+            GlobalPositionerOptions(max_num_iterations=1), device=dev,
+            num_parts=PART_PARTS)))
+    finally:
+        multihost.shutdown()
+    launches = {k: launches_ba[k] + launches_gp[k] for k in launches_ba}
+    runs["launches_ba"], runs["launches_gp"] = launches_ba, launches_gp
+    return runs, cases, launches
+
+
+def two_rank_runs(ba_input, gp_input, dev) -> dict:
+    """(b), (c) on two ranks under gloo, two processes on the one card
+    (NCCL runs no two ranks on one device): each loads the problem from a
+    checkpoint, runs its share and checks its results against rank 0's."""
+    save_checkpoint(str(PART_DIR / "ba_problem.npz"), *ba_input[:1],
+                    tracks=ba_input[1])
+    save_checkpoint(str(PART_DIR / "gp_problem.npz"), *gp_input[:1],
+                    tracks=gp_input[1])
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out = {}
+    for solver, options in (
+            ("ba", {"max_num_iterations": PART_BA_ITERS,
+                    "function_tolerance": 0.0}),
+            ("gp", {"max_num_iterations": PART_GP_ITERS})):
+        ranks = dryrun.run_world(
+            2, solver, PART_PARTS, PART_DIR / f"gloo_{solver}",
+            device=dev, backend="gloo",
+            problem=PART_DIR / f"{solver}_problem.npz", options=options,
+            timeout=PART_WORLD_TIMEOUT)
+        r0, r1 = ranks
+        if not all(r["ok"] and r["agree"] for r in ranks) or not all(
+                np.array_equal(r0[k], r1[k]) for k in (
+                    "frame_quat", "frame_trans", "cam_params", "xyz")):
+            raise AssertionError(f"phase 10: the two gloo ranks of {solver} "
+                                 "disagree")
+        scene = gp_input[0].copy() if solver == "gp" else \
+            ba_input[0].copy()
+        scene.frame_quat, scene.frame_trans = r0["frame_quat"], \
+            r0["frame_trans"]
+        out[solver] = {"cost": r0["cost"] if solver == "ba" else None,
+                       "lm_iters": r0["lm_iters"],
+                       "seconds": [r["seconds"] for r in ranks],
+                       "stats": [r["stats"] for r in ranks],
+                       "launches": [r["launches"] for r in ranks],
+                       "centers": scene.frame_centers()}
+    return out
+
+
+def ba_summary(run, it_key="lm_iters") -> dict:
+    st = {k: v for k, v in run.items() if k not in ("centers", "xyz")}
+    it = run[it_key]
+    out = {"cost": run["cost"], "lm_iters": it,
+           "lm_iters_per_s": it / run["solve_seconds"], "stats": st}
+    if "partitioned" in run:
+        part = run["partitioned"]
+        out["allreduce_bytes_per_lm_iter"] = part["allreduce_bytes"] / max(
+            it, 1)
+        out["allreduce_calls_per_lm_iter"] = part["allreduce_calls"] / max(
+            it, 1)
+    return out
+
+
+def partitioned_phase(dev, card, options=None, backend=None):
+    """Phase 10: (report, recorded kernel inputs, launches) of the
+    partitioned solvers on the sequential capture. `options` and
+    `backend` shrink the problem and name the one-rank world's backend
+    for a CPU rehearsal; the card runs the defaults and NCCL."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(PART_DIR, ignore_errors=True)
+    PART_DIR.mkdir(parents=True)
+    ba_in, gp_in, gt_centers, a = partitioned_problem(dev, options)
+    print(f"# partitioned problem: {a['frames']} frames, {a['pairs']} "
+          f"pairs, {a['matches']} matches, {a['tracks']} tracks, "
+          f"{a['observations']} observations; generated in "
+          f"{a['generation_s']:.1f} s, stage 4 {a['stage4_s']:.1f} s",
+          file=sys.stderr)
+    if options is None and a["observations"] < 1_000_000:
+        raise AssertionError(f"phase 10: {a['observations']} observations, "
+                             "under 1M")
+    _, obs, _ = tba.build_ba_inputs(*ba_in)
+    t0 = time.perf_counter()
+    plan = partition_points(*ba_in, PART_PARTS, obs["o_point"],
+                            obs["o_frame"])
+    a["partition_s"] = time.perf_counter() - t0
+    a["cut_fraction"] = plan.cut_fraction
+    del obs
+
+    single = unpartitioned_runs(ba_in, gp_in, dev)
+    one, cases, launches = one_rank_runs(ba_in, gp_in, dev, backend)
+    two = two_rank_runs(ba_in, gp_in, dev)
+
+    # BA: the cost at the shared start within the derived bound; after
+    # the run within PART_BA_COST_RTOL; centers within PART_CENTER_SPAN
+    u = 2.0 ** -24
+    c0 = single["ba_start"]["cost"]
+    start_gap = abs(one["ba_start"]["cost"] - c0)
+    start_bound = sum_depth_bound(a["observations"], 1) * u * c0
+    if not start_gap <= start_bound:
+        raise AssertionError(f"phase 10: BA cost at the start {c0} vs "
+                             f"{one['ba_start']['cost']}, gap {start_gap} "
+                             f"above the derived {start_bound}")
+    ref = single["ba"]
+    ba = {"unpartitioned": ba_summary(ref),
+          "one_rank_nccl": ba_summary(one["ba"])}
+    ba["two_rank_gloo"] = {
+        "cost": two["ba"]["cost"], "lm_iters": two["ba"]["lm_iters"],
+        "lm_iters_per_s": [two["ba"]["lm_iters"] / s["solve_seconds"]
+                           for s in two["ba"]["stats"]],
+        "allreduce_bytes_per_lm_iter": [
+            s["partitioned"]["allreduce_bytes"] /
+            max(two["ba"]["lm_iters"], 1)
+            for s in two["ba"]["stats"]],
+        "stats": two["ba"]["stats"], "launches": two["ba"]["launches"]}
+    for name, run in (("one_rank_nccl", one["ba"]),
+                      ("two_rank_gloo", two["ba"])):
+        rel = abs(run["cost"] - ref["cost"]) / ref["cost"]
+        gap = aligned_center_gap(run["centers"], ref["centers"])
+        ba[name].update(cost_rel=rel, center_gap_over_span=gap)
+        if not (rel <= PART_BA_COST_RTOL and gap <= PART_CENTER_SPAN):
+            raise AssertionError(f"phase 10: BA {name}: cost {rel} "
+                                 f"relative, centers {gap} of the span")
+    gp = {"unpartitioned": {k: v for k, v in single["gp"].items()
+                            if k != "centers"}}
+    for name, run in (("one_rank_nccl", one["gp"]),
+                      ("two_rank_gloo", two["gp"])):
+        gap = aligned_center_gap(run["centers"], single["gp"]["centers"])
+        gp[name] = {k: v for k, v in run.items() if k != "centers"}
+        prep = [s_["partitioned"]["prep_seconds"] for s_ in run["stats"]] \
+            if name == "two_rank_gloo" else \
+            run["partitioned"]["prep_seconds"]
+        gp[name]["lm_iters_per_s_after_prep"] = (
+            [run["lm_iters"] / (t - p_) for t, p_ in zip(run["seconds"],
+                                                         prep)]
+            if name == "two_rank_gloo"
+            else run["lm_iters"] / (run["seconds"] - prep))
+        gp[name]["center_gap_over_span"] = gap
+        gp[name]["unaligned_center_gap_over_span"] = raw_center_gap(
+            run["centers"], single["gp"]["centers"])
+        if not gap <= PART_CENTER_SPAN:
+            raise AssertionError(f"phase 10: GP {name}: centers {gap} of "
+                                 "the span")
+    err = aligned_center_errors(single["gp"]["centers"], gt_centers)
+    report = {
+        "problem": a, "parts": PART_PARTS, "ba": ba, "gp": gp,
+        "ba_cost_at_start": {"unpartitioned": c0,
+                             "one_rank_nccl": one["ba_start"]["cost"],
+                             "gap_rel": start_gap / c0,
+                             "derived_bound_rel": start_bound / c0},
+        "ba_cost_rtol": PART_BA_COST_RTOL,
+        "center_bound_over_span": PART_CENTER_SPAN,
+        "gp_center_error_vs_generator": {"max": float(err.max()),
+                                         "median": float(np.median(err))},
+        "launches_ba": one["launches_ba"], "launches_gp": one["launches_gp"],
+        "empty_axis_cases": empty_axis_checks(dev),
+        "cusolver_batches": cusolver_probe(dev, a["tracks"], a["pairs"])
+        if dev.type == "cuda" else "not measured",
+        "nccl_bitwise_reproducible": True,
+        "phase_seconds": time.perf_counter() - t_phase, "card": card}
+    return report, cases, launches
 
 
 def main() -> int:
@@ -2811,6 +3279,16 @@ def main() -> int:
         stage_launches[path] = path_launches
     del mapper_paths
 
+    # phase 10: the partitioned solvers on the sequential capture
+    part, part_cases, part_launches = partitioned_phase(dev, card)
+    per_stage["partitioned"] = {n: ([], []) for n in BA_KERNELS}
+    for (name, *_), (args, calls) in part_cases.items():
+        res = measure_case(name, args, gen, peak_bw, peak_flops)
+        per_stage["partitioned"][name][0].append(res)
+        per_stage["partitioned"][name][1].append(calls)
+    stage_launches["partitioned"] = part_launches
+    del part_cases
+
     paths = [("ba", per_kernel, launches),
              ("inlier_sweep", per_sweep, sweep_launches)] + \
         [(p, per_stage[p], stage_launches[p]) for p in per_stage]
@@ -2856,6 +3334,7 @@ def main() -> int:
     print(json.dumps({"stage_7": {**retri, "card": card}}))
     print(json.dumps({"stage_3": {**ra, "card": card}}))
     print(json.dumps({"mapper": mapper}))
+    print(json.dumps({"partitioned": part}))
     print(card)
     # the run used one card
     print(json.dumps({"ok": True, "device": {

@@ -95,7 +95,7 @@ class GlobalMapper:
         if state is not None:
             tracks = _resume_into(state, scene, view_graph, tracks)
         if start_stage <= 7 and not opt.skip_retriangulation:
-            _require_matches(view_graph)
+            _require_view_graph(view_graph)
 
         def ckpt(idx):
             if opt.checkpoint_dir:
@@ -467,10 +467,24 @@ class GlobalMapper:
         return tracks
 
 
+def _require_view_graph(vg: ViewGraph) -> None:
+    """Before any stage, with stage 7 on: a view graph without pairs or
+    matches is a model read without its database (ROADMAP C.7), which
+    stage 7 cannot rebuild tracks from; the JAX package returns None
+    without a reason. A graph whose pairs are all invalid is not this
+    case: it fails where the JAX package fails, by solve returning None
+    (rotation averaging finds no pair)."""
+    if vg.num_pairs == 0 or vg.num_matches == 0:
+        raise ValueError(
+            "stage 7 (retriangulation) rebuilds the tracks from the view "
+            "graph's matches, and the view graph has no pairs or no "
+            "matches (a model read without its database); set "
+            "skip_retriangulation")
+
+
 def _require_matches(vg: ViewGraph) -> None:
     """Stage 7 rebuilds the tracks from the view graph's inlier matches:
-    without any it would leave no track, and BA would fail. The JAX
-    package then returns None without a reason (ROADMAP C.7)."""
+    without any it would leave no track, and BA would fail."""
     if not (vg.pair_valid[vg.match_pair] & vg.match_inlier).any():
         raise ValueError(
             "stage 7 (retriangulation) rebuilds the tracks from the view "

@@ -163,7 +163,8 @@ def _solve_ba(frame_quat, frame_trans, cam_params, points,
               optimize_rig: bool = False,
               cam_kind=None,
               cg_tol: float = 1e-2,
-              max_rejections: int = 8):
+              max_rejections: int = 8,
+              allreduce=None):
     """Lane-major LM solve on the device of `points`, in its dtype.
 
     Same arguments and results as the JAX package's _solve_ba: returns
@@ -181,7 +182,23 @@ def _solve_ba(frame_quat, frame_trans, cam_params, points,
         through a CSR built once per solve, with no window;
       * big_cam_blocks: the pair kernel never stores the (256, O) camera
         product stack, so the camera blocks always go through it;
-      * lam0 and the host-segmented LM calls, mesh_axis and cam_of_sensor.
+      * lam0 and the host-segmented LM calls;
+      * cam_of_sensor: a rank folds its own sensors' J^T partials onto
+        their cameras before any sum across ranks, so it needs only the
+        sensors it observes.
+
+    allreduce, where given, is the JAX package's mesh_axis: the
+    observations and the points are split across the ranks of a process
+    group (parallel/partitioned_ba.py), each rank's o_point indexing its
+    own points, and the frame, camera and sensor tables are replicated.
+    allreduce(t) returns t summed across the ranks, with the same bits on
+    every rank; it takes every reduction onto a replicated axis (the
+    gradients, the Gram and Schur-correction blocks, each CG matvec's
+    J^T partials, folded to frame, camera and sensor before the sum) and
+    the cost. Point-axis reductions stay local: a point's observations
+    never leave its rank. So every rank holds the same frame, camera and
+    sensor state bit for bit and takes the same LM and CG branches.
+    Unset, nothing is summed and the solve is the single-device one.
 
     Host syncs per LM iteration: one per CG iteration plus one for the
     CG's first exit test, and one for the LM exit test."""
@@ -200,15 +217,17 @@ def _solve_ba(frame_quat, frame_trans, cam_params, points,
         t.to(device=dev, dtype=torch.int64)
         for t in (o_frame, o_cam, o_point, o_sensor))
 
-    reduce_f, gather_f, rpairs_f, _ = make_axis_pair_ops(o_frame, F)
-    _, gather_c, rpairs_c, _ = make_axis_pair_ops(o_cam, C)
+    total = allreduce or (lambda t: t)
+    _, gather_f, rpairs_f, _ = make_axis_pair_ops(o_frame, F, allreduce)
+    _, gather_c, rpairs_c, _ = make_axis_pair_ops(o_cam, C, allreduce)
     reduce_p, gather_p, rpairs_p, gdot_p = make_axis_pair_ops(o_point,
                                                               num_points)
     # frame-sensor axis: the pose tables and the fused CG matvec ride it
     reduce_fs, gather_fs, _, gdot_fs = make_axis_pair_ops(
         o_frame * S + o_sensor, F * S)
     if optimize_rig:
-        _, gather_s, rpairs_s, _ = make_axis_pair_ops(o_sensor, num_sensors)
+        _, gather_s, rpairs_s, _ = make_axis_pair_ops(o_sensor, num_sensors,
+                                                      allreduce)
 
     if cam_kind is None:
         cam_kind = torch.zeros((C,), dtype=torch.int64, device=dev)
@@ -259,7 +278,7 @@ def _solve_ba(frame_quat, frame_trans, cam_params, points,
         rows, _ = persp_rows(fq, ft, sq, st, cp, X)
         rT, _ = kernels.projection_resid_jac(*rows)
         _, c = kernels.huber_irls(rT, huber_delta, o_w)
-        return torch.sum(c)
+        return total(torch.sum(c))
 
     def tie_g(g_raw):  # (C, 16) -> T^T g
         return _bmv(T_t, g_raw)
@@ -325,9 +344,16 @@ def _solve_ba(frame_quat, frame_trans, cam_params, points,
         def JT_scatter(y):
             acc = reduce_fs(_jt(Jfc, y)).reshape(F, S, kfc)
             out_f = acc[:, :, 0:6].sum(1)
-            out_c = tie_g(sens_cam @ acc[:, :, 6:22].sum(0))
+            out_c = sens_cam @ acc[:, :, 6:22].sum(0)
             out_s = acc[:, :, 22:28].sum(0) if optimize_rig else None
-            return out_f, out_c, out_s
+            if allreduce is not None:  # one sum across ranks a matvec
+                folded = [out_f, out_c] + ([out_s] if optimize_rig else [])
+                flat = allreduce(torch.cat([t.reshape(-1) for t in folded]))
+                out_f = flat[:F * 6].reshape(F, 6)
+                out_c = flat[F * 6:F * 6 + C * 16].reshape(C, 16)
+                if optimize_rig:
+                    out_s = flat[F * 6 + C * 16:].reshape(S, 6)
+            return out_f, tie_g(out_c), out_s
 
         def Hpc_apply(vf, vc, vs):
             """camera-side direction -> point-side (num_points, 3)"""
@@ -550,15 +576,27 @@ def build_ba_inputs(scene: Scene, tracks: Tracks,
 def solve_bundle_adjustment(scene: Scene, tracks: Tracks,
                             opts: BundleAdjusterOptions | None = None,
                             dtype: torch.dtype = torch.float32,
-                            device=None, stats: dict | None = None) -> bool:
+                            device=None, stats: dict | None = None,
+                            num_parts: int | None = None,
+                            process_group=None) -> bool:
     """Run global BA; updates scene poses/intrinsics and track points.
 
     Counterpart of BundleAdjuster::Solve. Runs on CUDA unless `device`
     says otherwise; with device=None and no CUDA it raises. The JAX
     package's bucket padding of the observation axis (a recompile
     workaround) and its host-segmented LM calls are gone. A `stats` dict,
-    if given, receives the solve's observations and its LM and CG
-    iterations ("obs", "lm_iters", "cg_iters")."""
+    if given, receives the solve's observations, its LM and CG iterations,
+    its final cost and the seconds of the solve after the host prep
+    ("obs", "lm_iters", "cg_iters", "cost", "solve_seconds"); every
+    device transfer and kernel of the call lies in that span.
+
+    With num_parts, the solve is split into that many parts over the
+    ranks of process_group (the default group; one rank holding every
+    part when none was joined): parallel/partitioned_ba.py, the JAX
+    package's solve_ba_partitioned. Every rank must call it with the same
+    inputs; each writes the same result, and `stats` gets the plan's
+    shape and this rank's all_reduce calls and bytes under
+    "partitioned"."""
     from glomap_tpu_torch.utils.carry import ba_inputs_from_arrays
 
     device = resolve_device(device)
@@ -567,13 +605,21 @@ def solve_bundle_adjustment(scene: Scene, tracks: Tracks,
         return False
     t0 = time.monotonic()
     params, obs, statics = build_ba_inputs(scene, tracks, opts)
-    if len(obs["o_frame"]) == 0:
+    n_obs = len(obs["o_frame"])
+    if n_obs == 0:
         return False
-    obs_perm, point_perm, new_of_old = order_obs_for_locality(
-        obs["o_frame"], obs["o_point"], tracks.num_tracks)
-    obs = {k: v[obs_perm] for k, v in obs.items()}
-    obs["o_point"] = new_of_old[obs["o_point"]].astype(np.int32)
-    params["points"] = params["points"][point_perm]
+    if num_parts:
+        from glomap_tpu_torch.parallel.partitioned_ba import PartitionedBA
+        share = PartitionedBA(scene, tracks, obs, num_parts, process_group)
+        obs, point_ids = share.obs, share.point_ids
+    else:
+        obs_perm, point_ids, new_of_old = order_obs_for_locality(
+            obs["o_frame"], obs["o_point"], tracks.num_tracks)
+        obs = {k: v[obs_perm] for k, v in obs.items()}
+        obs["o_point"] = new_of_old[obs["o_point"]].astype(np.int32)
+    # the points table in the layout's order: row i is track point_ids[i]
+    params["points"] = params["points"][point_ids]
+    statics = dict(statics, num_points=len(point_ids))
 
     # rig-pose optimization: only non-reference sensors move
     sensor_mask = np.zeros((len(scene.sensor_quat), 6))
@@ -588,18 +634,26 @@ def solve_bundle_adjustment(scene: Scene, tracks: Tracks,
         max_iters=statics["max_iters"], cg_iters=statics["cg_iters"],
         optimize_points=statics["optimize_points"],
         optimize_rig=bool(opts.optimize_rig_poses),
-        cg_tol=float(opts.cg_relative_tolerance))
-
-    fq, ft, cp, X = (t.detach().to("cpu", torch.float64).numpy()
-                     for t in (fq, ft, cp, X))
+        cg_tol=float(opts.cg_relative_tolerance),
+        allreduce=share.allreduce if num_parts else None)
+    if num_parts:
+        X, point_ids = share.fetch_points(X)
+    fq, ft, cp, X, sq, st = (t.detach().to("cpu", torch.float64).numpy()
+                             for t in (fq, ft, cp, X, sq, st))
+    cost = float(cost)
+    t2 = time.monotonic()
     logging.getLogger(__name__).info(
         "BA solve: %d LM iters, cost %.3e, host prep %.2fs, solve %.2fs "
         "(%d obs, %d CG iters total, %.1f/LM, cap %d)",
-        it, float(cost), t1 - t0, time.monotonic() - t1,
-        len(obs["o_frame"]), cg_total, cg_total / max(it, 1),
+        it, cost, t1 - t0, t2 - t1, n_obs, cg_total, cg_total / max(it, 1),
         int(opts.cg_max_iterations))
     if stats is not None:
-        stats.update(obs=len(obs["o_frame"]), lm_iters=it, cg_iters=cg_total)
+        stats.update(obs=n_obs, lm_iters=it, cg_iters=cg_total, cost=cost,
+                     solve_seconds=t2 - t1)
+        if num_parts:
+            stats["partitioned"] = share.stats(
+                statics, bool(opts.optimize_rig_poses),
+                torch.finfo(dtype).bits // 8)
     if not (np.all(np.isfinite(fq)) and np.all(np.isfinite(ft)) and
             np.all(np.isfinite(cp)) and np.all(np.isfinite(X))):
         return False
@@ -607,8 +661,8 @@ def solve_bundle_adjustment(scene: Scene, tracks: Tracks,
     scene.frame_trans[:] = ft
     scene.cam_params[:] = cp
     if opts.optimize_rig_poses:
-        scene.sensor_quat[:] = sq.to("cpu", torch.float64).numpy()
-        scene.sensor_trans[:] = st.to("cpu", torch.float64).numpy()
+        scene.sensor_quat[:] = sq
+        scene.sensor_trans[:] = st
     if opts.optimize_points:
-        tracks.xyz[:] = X[new_of_old]  # undo the locality renumbering
+        tracks.xyz[point_ids] = X  # undo the layout's renumbering
     return True

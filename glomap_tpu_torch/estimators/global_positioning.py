@@ -24,9 +24,13 @@ through ops/segment_ops: B2 gathers, B3 row sums, and B5 for each
 a (I - h h^T) * gather(v), with the (9, O) stack of the per-observation
 3x3 operators as B5's U. The Huber weights and costs are B6. The TPU
 mechanism is gone: point_width/axis_window, bucket padding, lam0 and the
-host-segmented LM calls, mesh_axis/psum_scalar, the partitioned flow and
-the exact= flags. One host read per LM iteration (the exit test) plus
-one per CG iteration, as in the port's BA.
+host-segmented LM calls and the exact= flags. One host read per LM
+iteration (the exit test) plus one per CG iteration, as in the port's BA.
+With num_parts, solve_global_positioning runs the same flow (the anneal,
+the scale grid, the unknown-rig alternation) with every _solve_gp split
+across the parts of a process group (parallel/partitioned_gp.py, the JAX
+package's _solve_partitioned_flow); _solve_gp's allreduce is the JAX
+package's mesh_axis.
 """
 
 from __future__ import annotations
@@ -98,29 +102,42 @@ def _solve_gp(c0, X0,
               cc_i, cc_j, t_ccT, cc_w,
               num_frames: int, num_points: int,
               huber_delta: float, function_tol: float,
-              max_iters: int, cg_iters: int, cg_tol: float = 1e-2):
+              max_iters: int, cg_iters: int, cg_tol: float = 1e-2,
+              allreduce=None, use_obs: bool | None = None,
+              use_cc: bool | None = None):
     """LM with exact scale projection and point Schur elimination, on the
     device and in the dtype of c0.
 
     Returns (centers, points, final_cost, iters, lam, done, cg_total):
     the JAX package's results plus the CG iterations; iters and cg_total
-    are Python ints, done a bool."""
+    are Python ints, done a bool.
+
+    allreduce, where given, sums a tensor across the ranks of a process
+    group (the JAX package's mesh_axis): the observations, the points they
+    hold and the camera-to-camera edges are split across ranks, the frame
+    centers replicated. It takes every frame-axis reduction and the cost,
+    so every rank holds the same centers bit for bit and takes the same
+    LM and CG branches; point-axis reductions stay local. use_obs and
+    use_cc say whether the point and camera constraint families take part
+    (default: whether this rank holds any); every rank of a group must
+    pass the same, so that all join the same sums."""
     dtype, dev = c0.dtype, c0.device
-    num_obs = obs_frame.shape[0]
-    num_cc = cc_i.shape[0]
+    has_obs = obs_frame.shape[0] > 0 if use_obs is None else use_obs
+    has_cc = cc_i.shape[0] > 0 if use_cc is None else use_cc
+    total = allreduce or (lambda t: t)
     eye3 = torch.eye(3, dtype=dtype, device=dev)
     eye9 = eye3.reshape(9, 1)
 
-    if num_obs:
-        reduce_f, gather_f, _, gdot_f = make_axis_pair_ops(obs_frame,
-                                                           num_frames)
+    if has_obs:
+        reduce_f, gather_f, _, gdot_f = make_axis_pair_ops(
+            obs_frame, num_frames, allreduce)
         reduce_p, gather_p, _, gdot_p = make_axis_pair_ops(obs_point,
                                                            num_points)
-    if num_cc:
-        reduce_ci, gather_ci, _, gdot_ci = make_axis_pair_ops(cc_i,
-                                                              num_frames)
-        reduce_cj, gather_cj, _, gdot_cj = make_axis_pair_ops(cc_j,
-                                                              num_frames)
+    if has_cc:
+        reduce_ci, gather_ci, _, gdot_ci = make_axis_pair_ops(
+            cc_i, num_frames, allreduce)
+        reduce_cj, gather_cj, _, gdot_cj = make_axis_pair_ops(
+            cc_j, num_frames, allreduce)
 
     def scaled_rows(dT, tT):
         """(dn2, s, rT) for baselines dT and observed directions tT."""
@@ -138,13 +155,13 @@ def _solve_gp(c0, X0,
 
     def cost_of(c, X):
         cost = torch.zeros((), dtype=dtype, device=dev)
-        if num_obs:
+        if has_obs:
             _, h = kernels.huber_irls(rows_obs(c, X)[3], huber_delta, obs_w)
             cost = cost + torch.sum(h)
-        if num_cc:
+        if has_cc:
             _, h = kernels.huber_irls(rows_cc(c)[3], huber_delta, cc_w)
             cost = cost + torch.sum(h)
-        return cost
+        return total(cost)
 
     def irls_rows(dT, dn2, s, rT, w0):
         """Weighted gradient rows w s r, moments and B5's U of one
@@ -165,14 +182,14 @@ def _solve_gp(c0, X0,
         # terms are folded into the signs below
         g_c = torch.zeros_like(c)
         m_f = torch.zeros((num_frames, 7), dtype=dtype, device=dev)
-        if num_obs:
+        if has_obs:
             wsr, mom, U = irls_rows(*rows_obs(c, X), obs_w)
             g_c = g_c + reduce_f(wsr)
             mg_X = reduce_p(wsr)  # -g_X, the point gradient negated
             m_f = m_f + reduce_f(mom)
             B_p_d = damp(_blocks_from_moments(reduce_p(mom), eye3), lam)
             Bp_inv = inv3x3(B_p_d)
-        if num_cc:
+        if has_cc:
             # residual t - s (c_j - c_i): dr/dc_i = +s I, dr/dc_j = -s I
             wsrc, momc, Uc = irls_rows(*rows_cc(c), cc_w)
             g_c = g_c + reduce_ci(wsrc) - reduce_cj(wsrc)
@@ -181,15 +198,15 @@ def _solve_gp(c0, X0,
 
         # rhs of the Schur system on frames: b_f = -g_c - H_cp Bp_inv (-g_X)
         b_f = -g_c
-        if num_obs:
+        if has_obs:
             b_f = b_f + reduce_f(gdot_p(_bmv(Bp_inv, mg_X), U))
 
         def schur_mv(v):
             out = _bmv(B_f_d, v)
-            if num_cc:
+            if has_cc:
                 out = out - reduce_ci(gdot_cj(v, Uc)) \
                     - reduce_cj(gdot_ci(v, Uc))
-            if num_obs:
+            if has_obs:
                 z2 = _bmv(Bp_inv, -reduce_p(gdot_f(v, U)))
                 out = out + reduce_f(gdot_p(z2, U))
             return out
@@ -202,7 +219,7 @@ def _solve_gp(c0, X0,
                                   return_info=True)
         c_new = c + dc
         X_new = X
-        if num_obs:
+        if has_obs:
             # back-substitute points: dX = Bp_inv (-g_X - H_pc dc)
             X_new = X + _bmv(Bp_inv, mg_X + reduce_p(gdot_f(dc, U)))
         new_cost = cost_of(c_new, X_new)
@@ -269,14 +286,23 @@ def _sensor_gn(c, X, of, op, tT, uT, ow, q_f_o, unk_o, o_sens, cs,
 def solve_global_positioning(scene: Scene, vg: ViewGraph, tracks: Tracks,
                              opts: GlobalPositionerOptions | None = None,
                              dtype: torch.dtype = torch.float32,
-                             device=None, stats: dict | None = None) -> bool:
+                             device=None, stats: dict | None = None,
+                             num_parts: int | None = None,
+                             process_group=None) -> bool:
     """Estimate frame positions and track points; updates scene and
     tracks in place. Counterpart of GlobalPositioner::Solve.
 
     Runs on CUDA unless `device` says otherwise (device=None without CUDA
     raises), in `dtype`: f32 on the card, whose kernels take f32. A
     `stats` dict, if given, receives the number of _solve_gp calls and
-    their LM and CG iterations ("solves", "lm_iters", "cg_iters")."""
+    their LM and CG iterations ("solves", "lm_iters", "cg_iters").
+
+    With num_parts, every _solve_gp is split into that many parts over the
+    ranks of process_group (the default group; one rank holding every
+    part when none was joined): parallel/partitioned_gp.py, the JAX
+    package's mesh= route. Every rank must call it with the same inputs;
+    each writes the same result, and `stats` gets the plan's shape and
+    this rank's all_reduce calls and bytes under "partitioned"."""
     device = resolve_device(device)
     opts = opts or GlobalPositionerOptions()
     rng = np.random.default_rng(opts.seed)
@@ -377,10 +403,20 @@ def solve_global_positioning(scene: Scene, vg: ViewGraph, tracks: Tracks,
     cg_cap = int(opts.cg_max_iterations)
     cg_tol = float(opts.cg_relative_tolerance)
 
-    def run(c, X, u, huber_delta):
-        return _solve_gp(c, X, of, op, tT, u, ow, ci, cj, tccT, cw,
-                         num_frames, num_points, huber_delta, ftol, iters,
-                         cg_cap, cg_tol)
+    if num_parts:
+        from glomap_tpu_torch.parallel.partitioned_gp import PartitionedGP
+        runner = PartitionedGP(scene, tracks, num_parts, o_frame, o_point,
+                               obs_w, t_obs, cc_i, cc_j, t_cc, cc_w,
+                               num_frames, device, dtype, process_group)
+
+        def run(c, X, u, huber_delta):
+            return runner.solve(c, X, u, huber_delta, ftol, iters, cg_cap,
+                                cg_tol)
+    else:
+        def run(c, X, u, huber_delta):
+            return _solve_gp(c, X, of, op, tT, u, ow, ci, cj, tccT, cw,
+                             num_frames, num_points, huber_delta, ftol,
+                             iters, cg_cap, cg_tol)
 
     stats = {} if stats is None else stats
     stats.update(solves=0, lm_iters=0, cg_iters=0)
@@ -443,6 +479,8 @@ def solve_global_positioning(scene: Scene, vg: ViewGraph, tracks: Tracks,
             scene.sensor_quat[unk_sensors], cs_np[unk_sensors])
         scene.sensor_known[unk_sensors] = True
 
+    if num_parts:
+        stats["partitioned"] = runner.stats()
     c = c.to("cpu", torch.float64).numpy()
     X = X.to("cpu", torch.float64).numpy()
     logger.info("GP solve: %d LM iters, cost %.4e (%d obs); %d solves, "

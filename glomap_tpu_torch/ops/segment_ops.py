@@ -36,23 +36,33 @@ def make_axis_ops(idx: torch.Tensor, n_seg: int):
     return reduce, gather
 
 
-def make_axis_pair_ops(idx: torch.Tensor, n_seg: int):
+def _identity(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+def make_axis_pair_ops(idx: torch.Tensor, n_seg: int, allreduce=None):
     """-> (reduce, gather, reduce_pairs, gather_dot) where
       reduce_pairs(U, V, pairs) is (n_seg, R) with
         out[s, r] = sum_{o in s} sum_{(a, b) in pairs[r]} U[a, o] * V[b, o];
       gather_dot(tab, U) is (nr, O) with
-        out[r, o] = sum_j U[r*k + j, o] * tab[idx[o], j]  (J * gather(v))."""
+        out[r, o] = sum_j U[r*k + j, o] * tab[idx[o], j]  (J * gather(v)).
+
+    allreduce, where given, takes each reduction's (n_seg, .) output and
+    returns its sum across the ranks of a process group (the JAX version's
+    psum_axis): the axis is replicated, its observations split across
+    ranks."""
     axis = SegmentAxis.build(idx, n_seg)
+    total = allreduce or _identity
 
     def reduce(vals):
-        return kernels.rowsum(vals.contiguous(), axis)
+        return total(kernels.rowsum(vals.contiguous(), axis))
 
     def gather(tab):
         return kernels.gather(tab.contiguous(), axis)
 
     def reduce_pairs(U, V, pairs):
-        return kernels.pair_rowsum(U.contiguous(), V.contiguous(), pairs,
-                                   axis)
+        return total(kernels.pair_rowsum(U.contiguous(), V.contiguous(),
+                                         pairs, axis))
 
     def gather_dot(tab, U):
         return kernels.gather_dot(tab.contiguous(), U.contiguous(), axis)

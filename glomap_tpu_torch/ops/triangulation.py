@@ -32,6 +32,20 @@ from glomap_tpu_torch.scene.arrays import Scene, Tracks
 _U32 = 0xFFFFFFFF
 # A[i, j] of the symmetric normal matrix from the six unique row sums
 _SYM = (0, 1, 2, 1, 3, 4, 2, 4, 5)
+# cuSOLVER's batched symmetric eigensolver refuses a batch of 32,768
+# matrices or more (CUSOLVER_STATUS_INVALID_VALUE from syevBatched's
+# buffer query; NVIDIA H100, CUDA 12.8, PyTorch 2.11): at most this many
+# a call. Each matrix is solved on its own, so the split changes no bit.
+EIGVALSH_BATCH = 16384
+
+
+def smallest_eigenvalues(A: torch.Tensor) -> torch.Tensor:
+    """(T, 3, 3) symmetric -> (T,) smallest eigenvalues, in batches of at
+    most EIGVALSH_BATCH."""
+    if A.shape[0] == 0:
+        return A.new_zeros((0,))
+    return torch.cat([torch.linalg.eigvalsh(a)[:, 0]
+                      for a in A.split(EIGVALSH_BATCH)])
 
 
 def midpoint_triangulate(axis: SegmentAxis, dT: torch.Tensor,
@@ -60,7 +74,7 @@ def midpoint_triangulate(axis: SegmentAxis, dT: torch.Tensor,
     scale = torch.clamp(tr, min=1e-12)
     X = torch.linalg.solve_ex(A + (1e-10 * scale)[:, None, None] * eye,
                               b[..., None])[0][..., 0]
-    ok = torch.linalg.eigvalsh(A)[:, 0] > 1e-6 * scale
+    ok = smallest_eigenvalues(A) > 1e-6 * scale
     return X, ok
 
 

@@ -1,10 +1,13 @@
 """Synthetic scene generator: the tests' and chip_smoke.py's data source.
 
 Counterpart of glomap_tpu/utils/synthetic.py (SyntheticOptions,
-synthesize_dataset), itself modelled on colmap::SynthesizeDataset as the
-reference's integration tests use it (global_mapper_test.cc): a ground
-truth reconstruction is projected to keypoints, and matches and two-view
-geometries are made with a chosen inlier ratio and 2D noise. It makes the
+synthesize_dataset, synthesize_gravity, SequentialCaptureOptions,
+synthesize_sequential_dataset), itself modelled on
+colmap::SynthesizeDataset as the reference's integration tests use it
+(global_mapper_test.cc): a ground truth reconstruction is projected to
+keypoints, and matches and two-view geometries are made with a chosen
+inlier ratio and 2D noise. The sequential capture is the one generator at
+the 1DSfM scale (800 images, 60,000 points by default). It makes the
 same numpy.random.default_rng calls in the same order as the JAX
 generator, so one seed gives one scene in both packages. The geometry
 runs on CPU f64 tensors through the port's own math.
@@ -324,3 +327,257 @@ def synthesize_gravity(scene: Scene, gt: dict, rng: np.random.Generator,
             g = R @ g
         scene.frame_gravity[fidx] = g / np.linalg.norm(g)
     return scene
+
+
+@dataclass
+class SequentialCaptureOptions:
+    """A 1DSfM-scale capture (the Alamo or Roman Forum kind): cameras on a
+    loop around a central structure with local covisibility, each point
+    seen only from an arc of the trajectory, so pairs and matches grow as
+    in a real sequential collection with loop closure, not as the
+    all-pairs ring of SyntheticOptions. Vectorized for 600-1,100 images,
+    50-150k pairs and 30-80M matches; the reference reaches this scale by
+    subsampling tracks (track_establishment.cc:153-225)."""
+
+    num_frames: int = 800
+    num_points3D: int = 60_000
+    image_width: int = 1024
+    image_height: int = 768
+    focal: float = 900.0
+    prior_focal: bool = True
+    camera_model: int = cm.PINHOLE
+    point2D_stddev: float = 0.0
+    inlier_match_ratio: float = 1.0
+    min_common_points: int = 30
+    # geometry: cameras at ring_radius looking inward at a cylindrical
+    # wall of points; a point is seen only from cameras within
+    # +-visibility_arc_deg/2 of its azimuth (a front-face proxy)
+    ring_radius: float = 50.0
+    wall_radius: float = 20.0
+    wall_depth: float = 3.0
+    wall_height: float = 10.0
+    visibility_arc_deg: float = 90.0
+    # the feature budget: an image keeps at most this many of the points
+    # it sees, which thins the matches of a pair and bounds track lengths
+    max_kp_per_image: int = 3000
+    seed: int = 1
+
+
+def synthesize_sequential_dataset(opt: SequentialCaptureOptions):
+    """(scene, view_graph, gt) as synthesize_dataset gives them, from a
+    sequential loop capture with sparse covisibility. Numpy on the host,
+    with no dense (images x points) array; the same default_rng calls in
+    the same order as the JAX package's generator."""
+    rng = np.random.default_rng(opt.seed)
+    F = opt.num_frames
+    P = opt.num_points3D
+    w, h, f = opt.image_width, opt.image_height, opt.focal
+
+    scene = Scene()
+    if opt.camera_model == cm.PINHOLE:
+        raw = np.asarray([f, f, w / 2, h / 2])
+    elif opt.camera_model == cm.SIMPLE_PINHOLE:
+        raw = np.asarray([f, w / 2, h / 2])
+    elif opt.camera_model == cm.SIMPLE_RADIAL:
+        raw = np.asarray([f, w / 2, h / 2, 0.01])
+    else:
+        raise ValueError("sequential capture supports pinhole-family "
+                         "models")
+    canon, kind = cm.canonicalize(opt.camera_model, raw)
+    scene.camera_ids = np.asarray([1], dtype=np.int64)
+    scene.cam_model_id = np.asarray([opt.camera_model], dtype=np.int32)
+    scene.cam_params = canon[None]
+    scene.cam_kind = np.asarray([kind], dtype=np.int32)
+    scene.cam_width = np.asarray([w], dtype=np.int64)
+    scene.cam_height = np.asarray([h], dtype=np.int64)
+    scene.cam_has_prior_focal = np.asarray([opt.prior_focal], dtype=bool)
+
+    # a trivial rig per frame, one shared camera
+    scene.rig_ids = np.asarray([1], dtype=np.int64)
+    scene.sensor_rig = np.zeros(1, dtype=np.int32)
+    scene.sensor_camera = np.zeros(1, dtype=np.int32)
+    scene.sensor_quat = np.asarray([[1.0, 0, 0, 0]])
+    scene.sensor_trans = np.zeros((1, 3))
+    scene.sensor_is_ref = np.ones(1, dtype=bool)
+    scene.sensor_known = np.ones(1, dtype=bool)
+
+    # the trajectory: a loop of cameras looking at the wall's axis
+    theta = 2 * np.pi * (np.arange(F) + rng.uniform(-0.3, 0.3, F)) / F
+    centers = np.stack([opt.ring_radius * np.cos(theta),
+                        rng.uniform(-2.0, 2.0, F),
+                        opt.ring_radius * np.sin(theta)], axis=1)
+    fq = np.zeros((F, 4))
+    ft = np.zeros((F, 3))
+    for i in range(F):
+        target = np.asarray([0.0, centers[i, 1] * 0.5, 0.0]) \
+            + 0.3 * rng.standard_normal(3)
+        R = _look_at(centers[i], target)
+        fq[i] = rotm.rotmat_to_quat(_t(R)).numpy()
+        ft[i] = -R @ centers[i]
+    scene.frame_ids = np.arange(1, F + 1, dtype=np.int64)
+    scene.frame_rig = np.zeros(F, dtype=np.int32)
+    scene.frame_quat = fq.copy()
+    scene.frame_trans = ft.copy()
+    scene.frame_registered = np.ones(F, dtype=bool)
+    scene.frame_cluster = np.zeros(F, dtype=np.int32)
+    scene.frame_has_gravity = np.zeros(F, dtype=bool)
+    scene.frame_gravity = np.zeros((F, 3))
+    scene.image_ids = np.arange(1, F + 1, dtype=np.int64)
+    scene.image_names = [f"frame{i:05d}.jpg" for i in range(F)]
+    scene.image_frame = np.arange(F, dtype=np.int32)
+    scene.image_camera = np.zeros(F, dtype=np.int32)
+    scene.image_sensor = np.zeros(F, dtype=np.int32)
+
+    # wall points, sorted by azimuth for the visibility slices
+    phi = np.sort(rng.uniform(0, 2 * np.pi, P))
+    r_pt = opt.wall_radius + rng.uniform(0, opt.wall_depth, P)
+    points = np.stack([r_pt * np.cos(phi),
+                       rng.uniform(-opt.wall_height / 2,
+                                   opt.wall_height / 2, P),
+                       r_pt * np.sin(phi)], axis=1)
+
+    half_arc = np.deg2rad(opt.visibility_arc_deg) / 2
+    Rm = rotm.quat_to_rotmat(_t(fq)).numpy()  # (F, 3, 3)
+    kp_xy_list, kp_point_list = [], []
+    kp_offset = [0]
+    cparams = scene.cam_params[0]
+
+    def project(x_cam):
+        # the pinhole-family projection in numpy, one image at a time
+        z = np.maximum(x_cam[:, 2], 1e-12)
+        xz = x_cam[:, 0] / z
+        yz = x_cam[:, 1] / z
+        if opt.camera_model == cm.SIMPLE_RADIAL:
+            s = 1.0 + cparams[4] * (xz * xz + yz * yz)
+            xz, yz = xz * s, yz * s
+        return np.stack([cparams[0] * xz + cparams[2],
+                         cparams[1] * yz + cparams[3]], axis=1)
+
+    for i in range(F):
+        # the azimuth window: two searchsorted slices of the sorted points
+        lo, hi = theta[i] - half_arc, theta[i] + half_arc
+        lo_w, hi_w = lo % (2 * np.pi), hi % (2 * np.pi)
+        if lo_w < hi_w:
+            cand = np.arange(*np.searchsorted(phi, (lo_w, hi_w)))
+        else:  # wraps around 2 pi
+            cand = np.concatenate([
+                np.arange(0, np.searchsorted(phi, hi_w)),
+                np.arange(np.searchsorted(phi, lo_w), P)])
+        x_cam = points[cand] @ Rm[i].T + ft[i]
+        px = project(x_cam)
+        vis = (x_cam[:, 2] > 0.2) & \
+            (px[:, 0] >= 0) & (px[:, 0] < w) & \
+            (px[:, 1] >= 0) & (px[:, 1] < h)
+        pids = cand[vis]
+        uv = px[vis]
+        if opt.max_kp_per_image and len(pids) > opt.max_kp_per_image:
+            keep = rng.choice(len(pids), opt.max_kp_per_image,
+                              replace=False)
+            pids, uv = pids[keep], uv[keep]
+        perm = rng.permutation(len(pids))
+        pids, uv = pids[perm], uv[perm]
+        if opt.point2D_stddev > 0:
+            uv = uv + opt.point2D_stddev * rng.standard_normal(uv.shape)
+        kp_xy_list.append(uv)
+        kp_point_list.append(pids)
+        kp_offset.append(kp_offset[-1] + len(pids))
+    scene.kp_xy = np.concatenate(kp_xy_list, axis=0)
+    scene.kp_offset = np.asarray(kp_offset, dtype=np.int64)
+    scene.kp_ray = np.zeros((scene.num_keypoints, 3))
+    kp_point = np.concatenate(kp_point_list)
+    kp_count = np.diff(scene.kp_offset)
+
+    # every true match, from the point-incidence list
+    inc_img = np.repeat(np.arange(F, dtype=np.int64), kp_count)
+    inc_feat = np.concatenate(
+        [np.arange(n, dtype=np.int64) for n in kp_count])
+    order = np.lexsort((inc_img, kp_point))
+    sp, si, sf = kp_point[order], inc_img[order], inc_feat[order]
+    seg_len = np.bincount(sp, minlength=P)
+    seg_start = np.concatenate([[0], np.cumsum(seg_len)[:-1]])
+    # the (a < b) detection pairs of each point, grouped by track length
+    # so that each group is one triu-index expansion
+    mi_list, mj_list, mf1_list, mf2_list = [], [], [], []
+    for k in np.unique(seg_len):
+        if k < 2:
+            continue
+        starts = seg_start[seg_len == k]
+        iu, ju = np.triu_indices(int(k), 1)
+        a = (starts[:, None] + iu[None, :]).ravel()
+        b = (starts[:, None] + ju[None, :]).ravel()
+        mi_list.append(si[a])
+        mj_list.append(si[b])
+        mf1_list.append(sf[a])
+        mf2_list.append(sf[b])
+    mi = np.concatenate(mi_list)
+    mj = np.concatenate(mj_list)
+    mf1 = np.concatenate(mf1_list)
+    mf2 = np.concatenate(mf2_list)
+    # i < j by image index
+    swap = mi > mj
+    mi[swap], mj[swap] = mj[swap], mi[swap]
+    mf1[swap], mf2[swap] = mf2[swap], mf1[swap]
+
+    key = mi * F + mj
+    korder = np.argsort(key, kind="stable")
+    key, mi, mj, mf1, mf2 = (key[korder], mi[korder], mj[korder],
+                             mf1[korder], mf2[korder])
+    ukey, inv_counts = np.unique(key, return_counts=True)
+    pair_of_match = np.repeat(np.arange(len(ukey)), inv_counts)
+    keep_pair = inv_counts >= opt.min_common_points
+    keep_match = keep_pair[pair_of_match]
+    new_pair_id = np.cumsum(keep_pair) - 1
+    m_pair = new_pair_id[pair_of_match[keep_match]]
+    mi, mj = mi[keep_match], mj[keep_match]
+    mf1, mf2 = mf1[keep_match], mf2[keep_match]
+    ukey = ukey[keep_pair]
+    counts = inv_counts[keep_pair]
+    pi = (ukey // F).astype(np.int32)
+    pj = (ukey % F).astype(np.int32)
+    n_pair = len(ukey)
+    offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+
+    # outliers: a global share of matches whose f2 goes to a random
+    # feature of image j
+    n_out = int(round((1.0 - opt.inlier_match_ratio) * len(mf2)))
+    if n_out > 0:
+        out_idx = rng.choice(len(mf2), size=n_out, replace=False)
+        mf2[out_idx] = np.floor(
+            rng.random(n_out) * kp_count[mj[out_idx]]).astype(np.int64)
+
+    # the true two-view geometries of the kept pairs, batched
+    qi_inv, ti_inv = rotm.rigid_inverse(_t(fq[pi]), _t(ft[pi]))
+    q_all, t_all = rotm.rigid_compose(_t(fq[pj]), _t(ft[pj]), qi_inv,
+                                      ti_inv)
+    E_all = tv.essential_from_motion(q_all, t_all).numpy()
+    K = tv.calib_matrix(*_t(canon[0:4]).unbind()).numpy()
+    Kinv = np.linalg.inv(K)
+    F_all = np.einsum("ji,pjk,kl->pil", Kinv, E_all, Kinv)
+
+    vg = ViewGraph()
+    vg.pair_i = pi
+    vg.pair_j = pj
+    vg.pair_valid = np.ones(n_pair, dtype=bool)
+    vg.pair_config = np.full(n_pair, CONFIG_CALIBRATED, dtype=np.int32)
+    vg.pair_E = E_all
+    vg.pair_F = F_all
+    vg.pair_H = np.zeros((n_pair, 3, 3))
+    vg.pair_quat = q_all.numpy()
+    vg.pair_trans = t_all.numpy()
+    vg.pair_weight = np.zeros(n_pair)
+    vg.pair_num_inliers = counts.astype(np.int64)
+    vg.match_pair = m_pair.astype(np.int32)
+    vg.match_f1 = mf1.astype(np.int32)
+    vg.match_f2 = mf2.astype(np.int32)
+    vg.match_inlier = np.ones(len(m_pair), dtype=bool)
+    vg.pair_match_offset = offsets
+
+    gt = {
+        "points": points,
+        "image_quat": fq,
+        "image_trans": ft,
+        "frame_quat": fq,
+        "frame_trans": ft,
+        "kp_point": kp_point,
+    }
+    return scene, vg, gt

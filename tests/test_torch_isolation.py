@@ -10,7 +10,8 @@
   nor the `mapper` command, which lets the error out before it writes.
   The native track engine's loader raises when g++ fails, for the track
   engine and for the connected components of the strong clustering
-  alike: it has no Python fallback.
+  alike: it has no Python fallback. In parallel/, no `try` wraps a
+  process group, a device or a solver, and a backend that fails raises.
 """
 
 import ast
@@ -79,6 +80,40 @@ def test_no_jax_import_statement(path):
         for name in names:
             assert name.split(".")[0] not in FORBIDDEN, \
                 f"{path.name}:{node.lineno} imports {name}"
+
+
+PARALLEL_FILES = sorted((PORT / "parallel").glob("*.py"))
+# what a `try` in parallel/ may call: the partitioner's ARPACK retries
+# (a numerical fallback of the eigensolver, as in the JAX package)
+PARALLEL_TRY_CALLS = {"eigsh", "argsort"}
+
+
+@pytest.mark.parametrize("path", PARALLEL_FILES,
+                         ids=[p.name for p in PARALLEL_FILES])
+def test_parallel_has_no_backend_or_kernel_fallback(path):
+    """No `try ... except` in parallel/ wraps a process-group call, a
+    device choice or a solver: a failed NCCL, gloo or kernel raises. The
+    partitioner's eigensolver retries are the one `except`."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Try) or not node.handlers:
+            continue  # try/finally cleans up and catches nothing
+        called = {c.func.attr if isinstance(c.func, ast.Attribute)
+                  else getattr(c.func, "id", "?")
+                  for stmt in node.body for c in ast.walk(stmt)
+                  if isinstance(c, ast.Call)}
+        assert called <= PARALLEL_TRY_CALLS, \
+            f"{path.name}:{node.lineno} tries {sorted(called)}"
+
+
+def test_process_group_failure_raises():
+    """A backend that does not exist raises, and no group is left."""
+    import torch.distributed as dist
+    from glomap_tpu_torch.parallel import multihost
+    with pytest.raises((AssertionError, RuntimeError, ValueError)):
+        multihost.initialize("tcp://localhost:1", 1, 0, "cpu",
+                             backend="no-such-backend")
+    assert not dist.is_initialized()
 
 
 def _tiny_problem():

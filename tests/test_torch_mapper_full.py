@@ -219,6 +219,30 @@ def test_mapper_noisy_outliers_observation_recovery():
 
 
 @pytest.mark.slow
+def test_mapper_sequential_loop_capture():
+    """The whole pipeline, relative poses and retriangulation included,
+    on the sequential loop capture (utils/synthetic.py,
+    synthesize_sequential_dataset): every frame registered and the noisy
+    oracle scaled to the ring's radius of 50, as in the JAX file."""
+    from glomap_tpu_torch.utils.synthetic import (
+        SequentialCaptureOptions, synthesize_sequential_dataset)
+    scene, vg, gt = synthesize_sequential_dataset(SequentialCaptureOptions(
+        num_frames=60, num_points3D=3000, max_kp_per_image=500,
+        point2D_stddev=0.5, inlier_match_ratio=0.9, seed=5))
+    scene.frame_quat = np.tile([1.0, 0, 0, 0], (scene.num_frames, 1))
+    scene.frame_trans = np.zeros((scene.num_frames, 3))
+    _wipe_pairs(vg)
+    _lifted(scene, vg)
+    opt = tcfg.GlobalMapperOptions()
+    opt.skip_preprocessing = True
+    opt.skip_view_graph_calibration = True
+    tracks, _ = _solve(scene, vg, opt)
+    assert scene.frame_registered.sum() == scene.num_frames
+    _expect_equal(scene, gt, 1e-1, 5e-1)
+    assert tracks.obs_valid.mean() > 0.9
+
+
+@pytest.mark.slow
 def test_mapper_reundistortion_after_intrinsics_ba(monkeypatch):
     """A 20%-wrong initial focal without a prior: stage 6 recovers it and
     the rays are re-lifted with the final intrinsics; with the refresh

@@ -333,3 +333,18 @@ def test_port_ransac_noisy_observations_survive():
     assert ok.sum() > 50
     assert _match_gt(tracks.xyz, gt["points"], 0.05)[ok].mean() > 0.95
     assert tracks.obs_valid.mean() > 0.95
+
+
+def test_smallest_eigenvalues_split_changes_no_bit(monkeypatch):
+    """midpoint_triangulate's eigenvalues come in batches of at most
+    EIGVALSH_BATCH (cuSOLVER refuses 32,768 or more at once); split at 7,
+    50 random symmetric matrices give the unsplit call's bits, and no
+    matrix gives an empty result."""
+    from glomap_tpu_torch.ops import triangulation as ttri
+    g = torch.Generator().manual_seed(0)
+    B = torch.randn((50, 3, 3), generator=g, dtype=torch.float64)
+    A = B @ B.transpose(1, 2)
+    whole = torch.linalg.eigvalsh(A)[:, 0]
+    monkeypatch.setattr(ttri, "EIGVALSH_BATCH", 7)
+    assert torch.equal(ttri.smallest_eigenvalues(A), whole)
+    assert ttri.smallest_eigenvalues(A[:0]).shape == (0,)
