@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's global bundle adjustment, stage-2 inlier
 sweep, stages 0-7 of the mapper, its mapper, mapper_resume and
-rotation_averager commands and its partitioned BA and GP on one NVIDIA
-card, check every kernel against its plain PyTorch version, and time it.
+rotation_averager commands, its partitioned BA and GP and its
+multi-device mapper on one NVIDIA card, check every kernel against its
+plain PyTorch version, and time it.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -194,13 +195,39 @@ Phases (each raises on failure; the exit code is then non-zero):
               recorded, checked and timed like phase 2 (the `partitioned`
               path of the kernels line); B1-B6 must launch on the counted
               partitioned runs; each kernel on an empty axis gives zeros.
+11. mesh    -- the multi-device mapper (files under build/mesh/). (a)
+              `cli.main(["mapper", "--distributed", ...])` on phase 9's
+              database in a world of one NCCL rank (GLOMAP_* and a file
+              store; counted: B1-B7 must launch), then two gloo ranks on
+              the one card (dryrun.run_world, `--solver mapper`): their
+              models byte-identical and the primary's CLI the same
+              bytes; each model against phase 9's oracles and phase 9's
+              one-device model (centers, both aligned to the
+              generator's, within MESH_MODEL_CENTER_BOUND); seconds by
+              stage. (b) Stages 3-6 on phase 10's capture from the
+              identity through GlobalMapper with device_mesh_shape=(4,)
+              on one NCCL rank and on one device (counted: B1-B6 must
+              launch; stage 3's B2 and B3 inputs recorded, the
+              `mesh_capture` path): rotations within 2 deg of the
+              generator's, centers within PART_CENTER_SPAN of each
+              other, LM it/s, all_reduce calls and bytes per RA sweep
+              and LM iteration; then the replicated-point BA
+              (solve_ba_sharded) on its result, counted and its inputs
+              recorded (the `sharded_ba` path), against one block with no
+              group within PART_BA_COST_RTOL. (c) solve_rotations_sharded
+              on phase 8's city graph in 4 parts on one NCCL rank
+              (counted and recorded, the `sharded_ra` path; sampled
+              errors under 3 deg) and on its component graph on two gloo
+              ranks (the same bits on both), each within MESH_RA_RAD of
+              the one-device solve; all_reduce calls per sweep.
 
 Output: the {"kernels": [...]} line (seven kernels; each path's numbers
 under "paths"), a {"slice": ...} line, an {"inlier_sweep": ...} line, a
 {"stages_4_6": ...} line, a {"mapper_resume": ...} line, a {"stage_7":
 ...} line, a {"stage_3": ...} line, a {"mapper": ...} line (its runs'
 StageTimer seconds: read database, stages 0-7, write model), a
-{"partitioned": ...} line, the card's name and power limit, and last
+{"partitioned": ...} line, a {"mesh": ...} line, the card's name and
+power limit, and last
 {"ok": true, "device": {...}}. Without a CUDA device it prints no result
 and exits 1.
 """
@@ -210,6 +237,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -256,6 +284,8 @@ from glomap_tpu_torch.ops import triangulation as tri
 from glomap_tpu_torch.ops import camera_models as cm
 from glomap_tpu_torch.parallel import dryrun, multihost
 from glomap_tpu_torch.parallel.partitioned_ba import partition_points
+from glomap_tpu_torch.parallel.sharded_ba import solve_ba_sharded
+from glomap_tpu_torch.parallel.sharded_ra import solve_rotations_sharded
 from glomap_tpu_torch.processors import pair_inliers, relpose_filter
 from glomap_tpu_torch.processors import view_graph_manipulation as vgmp
 from glomap_tpu_torch.processors.undistortion import undistort_images
@@ -495,6 +525,31 @@ PART_CENTER_SPAN = 1e-3
 # the cost at the shared initial state within a bound derived from its
 # order of operations (sum_depth_bound).
 PART_BA_COST_RTOL = 1e-6
+# phase 11: the multi-device mapper (files under build/mesh/). (a) `mapper
+# --distributed` on phase 9's database; (b) stages 3-6 on phase 10's
+# capture in MESH_PARTS parts on one NCCL rank, BA with the JAX package's
+# dry-run budget (one round of MESH_BA_ITERS LM iterations), and the
+# replicated-point BA on its result; (c) the sharded RA on phase 8's city
+# graph (one NCCL rank) and component graph (two gloo ranks).
+MESH_DIR = Path(__file__).resolve().parent / "build" / "mesh"
+MESH_PARTS = 4
+MESH_BA_ITERS = 20
+MESH_SHARDED_BA_ITERS = 5
+MESH_WORLD_TIMEOUT = 900.0
+# (a) the models' image centers against the one-device model's, both
+# Sim3-aligned to the generator's: each model is held to GP_CENTER_BOUND of
+# the generator's centers (model_check), so by the triangle inequality two
+# of them lie within twice that of each other (model_center_gap)
+MESH_MODEL_CENTER_BOUND = 2 * GP_CENTER_BOUND
+# (c) the sharded RA's rotations against the one-device solve's on the
+# same graph. The two add in other orders (a rank's edges in part order,
+# the all_reduce of the ranks' partials), and the component graph's sweeps
+# are projected CG where the one-device solve's are dense. A measured
+# bound, not a derived one: on an NVIDIA H100 80GB HBM3 (700 W) the city
+# graph on one NCCL rank differed by 4.28e-5 rad, the component graph on
+# two gloo ranks by 4.0e-7; both sides are deterministic. The bound
+# leaves 11x.
+MESH_RA_RAD = 5e-4
 
 
 def card_line() -> str:
@@ -1089,8 +1144,8 @@ def kernel_summary(name, paths):
     source, replaces = REPLACES[name]
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=total,
-                max_abs_err=max(c["max_abs_err"] for v in paths.values()
-                                for c in v[0]),
+                max_abs_err=max((c["max_abs_err"] for v in paths.values()
+                                 for c in v[0]), default=None),
                 ms=mean("ms"), plain_ms=mean("plain_ms"),
                 bound_ms=mean("bound_ms"),
                 bound_by="bytes" if all(v["bound_by"] == "bytes"
@@ -2648,7 +2703,9 @@ def mapper_command(db, names_gt, num_keypoints, dev, card):
 
 def mapper_phase(dev, card):
     """Phase 9: (report, {path: (recorded kernel inputs, launches)} of the
-    card's calibration in (b) and the counted `mapper` run in (d))."""
+    card's calibration in (b) and the counted `mapper` run in (d), the
+    database's path, the generator's centers by image name, its keypoint
+    count and the counted run's model for phase 11)."""
     t_phase = time.perf_counter()
     db, names_gt, pair_gt, a = mapper_database(MAPPER_DIR)
     print(f"# database: {a['bytes']} bytes in {a['write_s']:.2f} s",
@@ -2666,8 +2723,11 @@ def mapper_phase(dev, card):
           file=sys.stderr)
     report = {"database": a, "front_end_vs_cpu": b, "relpose": c,
               "command": d, "phase_seconds": time.perf_counter() - t_phase}
+    database = {"path": db, "names_gt": names_gt,
+                "num_keypoints": scene.num_keypoints,
+                "model": MAPPER_DIR / "first" / "0"}
     return report, {"view_graph_calibration": (calib_cases, calib_launches),
-                    "mapper": (cases, launches)}
+                    "mapper": (cases, launches)}, database
 
 
 # ----------------------------------------------------------------------------
@@ -2679,12 +2739,14 @@ def partitioned_problem(dev, options=None):
     """(a) The sequential capture, its tracks from stage 4 triangulated on
     the card: (BA's scene and tracks, the poses perturbed as
     tests/test_bundle_adjustment.py's _prepare does; GP's, the generator's
-    poses; the generator's frame centers; report)."""
+    poses; the generator's frame centers; report; the generator's scene,
+    lifted, and view graph for phase 11)."""
     opt = SequentialCaptureOptions(**(options or PART_OPTIONS))
     t0 = time.perf_counter()
     scene, vg, _ = synthesize_sequential_dataset(opt)
     t1 = time.perf_counter()
     undistort_images(scene, device=dev)
+    capture = (scene.copy(), vg)
     full = establish_full_tracks(scene, vg)
     tracks = find_tracks_for_problem(scene, full)
     t2 = time.perf_counter()
@@ -2707,7 +2769,7 @@ def partitioned_problem(dev, options=None):
               "tracks_full": full.num_tracks, "tracks": tracks.num_tracks,
               "observations": obs, "generation_s": t1 - t0,
               "stage4_s": t2 - t1, "triangulation_s": t3 - t2}
-    return (scene, tracks), gp, gt_centers, report
+    return (scene, tracks), gp, gt_centers, report, capture
 
 
 def sum_depth_bound(O: int, parts: int) -> float:
@@ -2961,14 +3023,15 @@ def ba_summary(run, it_key="lm_iters") -> dict:
 
 
 def partitioned_phase(dev, card, options=None, backend=None):
-    """Phase 10: (report, recorded kernel inputs, launches) of the
-    partitioned solvers on the sequential capture. `options` and
+    """Phase 10: (report, recorded kernel inputs, launches, the capture's
+    generator scene, view graph and frame centers) of the partitioned
+    solvers on the sequential capture. `options` and
     `backend` shrink the problem and name the one-rank world's backend
     for a CPU rehearsal; the card runs the defaults and NCCL."""
     t_phase = time.perf_counter()
     shutil.rmtree(PART_DIR, ignore_errors=True)
     PART_DIR.mkdir(parents=True)
-    ba_in, gp_in, gt_centers, a = partitioned_problem(dev, options)
+    ba_in, gp_in, gt_centers, a, capture = partitioned_problem(dev, options)
     print(f"# partitioned problem: {a['frames']} frames, {a['pairs']} "
           f"pairs, {a['matches']} matches, {a['tracks']} tracks, "
           f"{a['observations']} observations; generated in "
@@ -3056,7 +3119,416 @@ def partitioned_phase(dev, card, options=None, backend=None):
         if dev.type == "cuda" else "not measured",
         "nccl_bitwise_reproducible": True,
         "phase_seconds": time.perf_counter() - t_phase, "card": card}
-    return report, cases, launches
+    return report, cases, launches, (*capture, gt_centers)
+
+
+# ----------------------------------------------------------------------------
+# phase 11: the multi-device mapper
+# ----------------------------------------------------------------------------
+
+
+def _env(values: dict):
+    """Set os.environ's values; returns a function that restores them."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+
+    def restore():
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return restore
+
+
+def centers_on_generator(model, names_gt: dict) -> dict:
+    """A model's image centers by name, Sim3-aligned to the generator's
+    centers of the same names (umeyama_alignment)."""
+    images = list(model[1].values())
+    q = torch.from_numpy(np.stack([im[0] for im in images]))
+    t = torch.from_numpy(np.stack([im[1] for im in images]))
+    est = pose_center(q, t).numpy()
+    gt = np.stack([names_gt[im[3]] for im in images])
+    s, R, tr = umeyama_alignment(est, gt)
+    return dict(zip([im[3] for im in images], apply_sim3(s, R, tr, est)))
+
+
+def model_check(path, database) -> dict:
+    """A written model against the generator: images, finite points,
+    centers by image name (Sim3-aligned) and the keypoint share, with
+    phase 9's oracles; raises when one fails."""
+    model = read_model(str(path))
+    counts = model_counts(model)
+    xyz = np.stack([p[0] for p in model[2].values()])
+    err = model_center_errors(model, database["names_gt"])
+    share = counts["observations"] / database["num_keypoints"]
+    if not (counts["images"] >= MAPPER_MIN_IMAGES and np.isfinite(xyz).all()
+            and err.max() < GP_CENTER_BOUND and share >= KEYPOINT_ORACLE):
+        raise AssertionError(f"phase 11: model {path}: {counts}, center "
+                             f"error {err.max()}, keypoint share {share}")
+    return {"counts": counts, "keypoint_share": share,
+            "center_error_max": float(err.max()), "model": model}
+
+
+def model_center_gap(a, b, names_gt: dict) -> float:
+    """The largest distance between two models' centers of one image,
+    each model Sim3-aligned to the generator's centers. Each lies within
+    its own center error of the generator's, so by the triangle
+    inequality the gap is at most the sum of the two errors."""
+    ca, cb = centers_on_generator(a, names_gt), centers_on_generator(
+        b, names_gt)
+    return float(max(np.linalg.norm(ca[n] - cb[n])
+                     for n in set(ca) & set(cb)))
+
+
+def mesh_mapper_cli(database, dev) -> tuple:
+    """(a) `mapper --distributed` on phase 9's database: a world of one
+    NCCL rank set through GLOMAP_* and a file store (counted: B1-B7 must
+    launch), then two gloo ranks on the one card (dryrun.run_world), each
+    writing the model it computed. Returns (report, launches)."""
+    root = MESH_DIR / "cli"
+    restore = _env({"GLOMAP_COORDINATOR": (root / "store").resolve().as_uri(),
+                    "GLOMAP_NUM_PROCESSES": "1", "GLOMAP_PROCESS_ID": "0"})
+    root.mkdir(parents=True)
+    try:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc, mapper = capture_mapper(lambda: cli.main(
+            ["mapper", "--distributed", "--database_path",
+             str(database["path"]), "--output_path", str(root / "nccl")]))
+        nccl_s = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        restore()
+    if rc != 0 or torch.distributed.is_initialized():
+        raise AssertionError(f"phase 11: mapper --distributed returned {rc}"
+                             " or did not leave its group")
+    require_launched(launches, MAPPER_KERNELS, "mapper --distributed")
+    torch.cuda.empty_cache() if dev.type == "cuda" else None
+    t0 = time.perf_counter()
+    ranks = dryrun.run_world(2, "mapper", 2, root / "gloo", device=dev,
+                             backend="gloo", problem=database["path"],
+                             timeout=MESH_WORLD_TIMEOUT)
+    gloo_s = time.perf_counter() - t0
+    digests = [r["stats"]["digest"] for r in ranks]
+    if not (all(r["ok"] and r["agree"] for r in ranks)
+            and digests[0] == digests[1]
+            and model_bytes(root / "gloo" / "cli" / "0")
+            == model_bytes(root / "gloo" / "rank_0" / "0")):
+        raise AssertionError("phase 11: the two gloo ranks' models differ")
+    one = model_check(database["model"], database)
+    nccl = model_check(root / "nccl" / "0", database)
+    gloo = model_check(root / "gloo" / "rank_0" / "0", database)
+    gaps = {name: model_center_gap(m["model"], one["model"],
+                                   database["names_gt"])
+            for name, m in (("nccl", nccl), ("gloo", gloo))}
+    if not max(gaps.values()) <= MESH_MODEL_CENTER_BOUND:
+        raise AssertionError(f"phase 11: models against the one-device "
+                             f"model: {gaps}")
+    ra = mapper.reports["rotation averaging"]["passes"]
+    report = {
+        "one_nccl_rank": {
+            "seconds": nccl_s, "stages_s": dict(mapper.timer.stages),
+            "counts": nccl["counts"], "keypoint_share": nccl["keypoint_share"],
+            "center_error_max": nccl["center_error_max"],
+            "ra_solves": [solve_summary(s) for p in ra for s in p["solves"]],
+            "ra_allreduce": [s["sharded"]["allreduce_calls"]
+                             for p in ra for s in p["solves"]],
+            "launches": launches},
+        "two_gloo_ranks": {
+            "seconds": gloo_s, "rank_seconds": [r["seconds"] for r in ranks],
+            "stages_s": [r["stats"]["stages"] for r in ranks],
+            "counts": gloo["counts"], "keypoint_share": gloo["keypoint_share"],
+            "center_error_max": gloo["center_error_max"],
+            "models_byte_identical": True},
+        "one_device_center_error_max": one["center_error_max"],
+        "center_gap_to_one_device": gaps,
+        "center_gap_bound": MESH_MODEL_CENTER_BOUND}
+    return report, launches
+
+
+def capture_mapper_options(parts=None) -> GlobalMapperOptions:
+    """(b) stages 3-6 on the capture (stages 0-2 skipped: the generator's
+    two-view geometry; stage 7 is (a)'s), with the JAX package's dry-run
+    budget for BA: one round of MESH_BA_ITERS LM iterations, here with no
+    early exit, and GP to its function tolerance (phase 10's cap): runs
+    that add in other orders stop alike only then, and the default GP cap
+    of 100 cut both short (a frame left without observations in one of
+    them). Stage 3 runs through the controller's method before solve, so
+    solve skips it."""
+    opt = GlobalMapperOptions(
+        skip_preprocessing=True, skip_view_graph_calibration=True,
+        skip_relative_pose_estimation=True, skip_rotation_averaging=True,
+        skip_retriangulation=True, num_iteration_bundle_adjustment=1)
+    opt.opt_ba.max_num_iterations = MESH_BA_ITERS
+    opt.opt_ba.function_tolerance = 0.0
+    opt.opt_gp.max_num_iterations = PART_GP_ITERS
+    opt.device_mesh_shape = (parts,) if parts else None
+    return opt
+
+
+def capture_run(capture, dev, parts=None, record=False) -> dict:
+    """(b) One run of stages 3-6 on the capture from the identity, with
+    device_mesh_shape=(parts,) or on one device; the counts zeroed before
+    stage 3 and read after stage 6; with `record`, stage 3's kernel
+    inputs."""
+    scene0, vg0 = capture
+    sc, g = scene0.copy(), vg0.copy()
+    sc.frame_quat[:] = [1.0, 0.0, 0.0, 0.0]
+    sc.frame_trans[:] = 0.0
+    mapper = GlobalMapper(capture_mapper_options(parts), device=dev)
+    ok = {}
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    stage3 = (lambda: ok.update(ok=mapper.rotation_averaging(sc, g)))
+    cases = record_cases(stage3) if record else stage3()
+    t1 = time.perf_counter()
+    tracks = mapper.solve(sc, g) if ok["ok"] else None
+    t2 = time.perf_counter()
+    launches = dict(kernels.LAUNCHES)
+    if tracks is None:
+        raise AssertionError(f"phase 11: stages 3-6 failed (parts {parts})")
+    return {"scene": sc, "tracks": tracks, "mapper": mapper,
+            "cases": cases if record else {}, "launches": launches,
+            "stage3_s": t1 - t0, "stages_4_6_s": t2 - t1}
+
+
+def capture_summary(run, gt_quat, gt_centers) -> dict:
+    sc, mapper = run["scene"], run["mapper"]
+    reg = sc.frame_registered
+    errs = pairwise_errors_deg(sc.frame_quat[reg], gt_quat[reg],
+                               sample=20000)
+    rep = mapper.reports
+    gp = rep["global positioning"]["gp"]
+    ba = rep["bundle adjustment"]["ba"]
+    out = {"stage3_s": run["stage3_s"], "stages_4_6_s": run["stages_4_6_s"],
+           "stages_s": dict(mapper.timer.stages),
+           "registered_frames": int(reg.sum()),
+           "rotation_error_deg_sampled": {"max": float(errs.max()),
+                                          "median": float(np.median(errs))},
+           "center_gap_to_generator_over_span": aligned_center_gap(
+               sc.frame_centers()[reg], gt_centers[reg]),
+           "ra_solves": [solve_summary(s) for p in rep["rotation averaging"]
+                         ["passes"] for s in p["solves"]],
+           "gp_lm_iters": gp.get("lm_iters"),
+           "gp_lm_iters_per_s": gp["lm_iters"] / gp["seconds"],
+           "ba": [{"lm_iters": b["lm_iters"],
+                   "lm_iters_per_s": b["lm_iters"] / b["solve_seconds"],
+                   "cost": b["cost"]} for b in ba],
+           "launches": run["launches"]}
+    if not errs.max() < RA_MAX_DEG:
+        raise AssertionError(f"phase 11: capture rotations {errs.max()} deg "
+                             "from the generator's")
+    if mapper.num_parts:
+        ra = [s["sharded"] for p in rep["rotation averaging"]["passes"]
+              for s in p["solves"]]
+        sweeps = [s["l1_irls_sweeps"] + s["irls_sweeps"]
+                  for s in out["ra_solves"]]
+        out["ra_allreduce"] = [
+            {"calls": s["allreduce_calls"], "bytes": s["allreduce_bytes"],
+             "calls_per_sweep": s["allreduce_calls"] / max(n, 1),
+             "parts": s["parts"], "locality": s["locality"]}
+            for s, n in zip(ra, sweeps)]
+        out["gp_allreduce"] = {
+            k: gp["partitioned"][k] for k in ("allreduce_calls",
+                                              "allreduce_bytes")}
+        out["ba_allreduce_per_lm_iter"] = [
+            {"calls": b["partitioned"]["allreduce_calls"] / max(
+                b["lm_iters"], 1),
+             "bytes": b["partitioned"]["allreduce_bytes"] / max(
+                 b["lm_iters"], 1)} for b in ba]
+    return out
+
+
+def sharded_ba_runs(run, dev) -> tuple:
+    """The replicated-point BA (parallel/sharded_ba.py) on (b)'s result,
+    MESH_SHARDED_BA_ITERS LM iterations with no early exit, in the world
+    of one NCCL rank holding MESH_PARTS blocks (counted), against the
+    same solve with no process group (one block, no hook); then one LM
+    iteration with every kernel input recorded. Returns (report, cases,
+    launches); the solve with no group runs before the world is joined,
+    see mesh_phase."""
+    sc, tr = run["scene"], run["tracks"]
+    opts = part_ba_options(MESH_SHARDED_BA_ITERS)
+    st = {}
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    cost, it = solve_ba_sharded(sc.copy(), tr.copy(), opts, MESH_PARTS,
+                                device=dev, stats=st)
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    require_launched(launches, BA_KERNELS, "sharded BA")
+    cases = record_cases(lambda: solve_ba_sharded(
+        sc.copy(), tr.copy(), part_ba_options(1), MESH_PARTS, device=dev))
+    return {"cost": cost, "lm_iters": it, "seconds": seconds,
+            "lm_iters_per_s": it / seconds, **st["sharded"],
+            "allreduce_calls_per_lm_iter": st["sharded"]["allreduce_calls"]
+            / max(it, 1),
+            "allreduce_bytes_per_lm_iter": st["sharded"]["allreduce_bytes"]
+            / max(it, 1), "launches": launches}, cases, launches
+
+
+def sharded_city(dev) -> tuple:
+    """(c) The city graph (phase 8 (d)'s, the CG route) through
+    solve_rotations_sharded in MESH_PARTS parts on the world of one NCCL
+    rank: counted and recorded (B2, B3). (report, cases, launches, the
+    graph and its rotations)."""
+    fi, fj, q_rel, q_gt = rotation_graph(**CITY_GRAPH)
+    scene, vg = graph_scene(fi, fj, q_rel, CITY_GRAPH["frames"])
+    st, ok = {}, {}
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    cases = record_cases(lambda: ok.update(ok=solve_rotations_sharded(
+        scene, vg, num_parts=MESH_PARTS, device=dev, stats=st)))
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    if not ok["ok"] or st["path"] != "cg":
+        raise AssertionError(f"phase 11: sharded city graph: ok {ok['ok']}")
+    require_launched(launches, RA_KERNELS, "sharded city graph")
+    errs = pairwise_errors_deg(scene.frame_quat, q_gt, sample=2000)
+    if not errs.max() < CITY_MAX_DEG:
+        raise AssertionError(f"phase 11: sharded city graph: sampled "
+                             f"pairwise error max {errs.max()} deg")
+    summary = solve_summary(st)
+    sweeps = summary["l1_irls_sweeps"] + summary["irls_sweeps"]
+    return {"seconds": seconds, "sweeps_per_s": sweeps / seconds, **summary,
+            "sharded": st["sharded"],
+            "allreduce_calls_per_sweep": st["sharded"]["allreduce_calls"]
+            / max(sweeps, 1),
+            "pairwise_error_deg_sampled": {"max": float(errs.max()),
+                                           "median": float(np.median(errs))},
+            "launches": launches}, cases, launches, \
+        (scene, vg, scene.frame_quat.copy())
+
+
+def sharded_component_gloo(dev) -> dict:
+    """(c) The component graph (phase 8 (c)'s 2,000 frames, the dense
+    ADMM route) through solve_rotations_sharded on two gloo ranks on the
+    one card: the same bits on both ranks, and within MESH_RA_RAD of
+    estimate_rotations on the card (phase 8 (c) holds that solve to the
+    generator's oracle)."""
+    fi, fj, q_rel, q_gt = rotation_graph(**COMPONENT_GRAPH)
+    scene, vg = graph_scene(fi, fj, q_rel, COMPONENT_GRAPH["frames"])
+    problem = MESH_DIR / "component.npz"
+    save_checkpoint(str(problem), scene, vg)
+    one = scene.copy()
+    if not estimate_rotations(one, vg, device=dev):
+        raise AssertionError("phase 11: component graph on one device "
+                             "failed")
+    t0 = time.perf_counter()
+    ranks = dryrun.run_world(2, "ra", 2, MESH_DIR / "gloo_ra", device=dev,
+                             backend="gloo", problem=problem,
+                             timeout=MESH_WORLD_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    r0, r1 = ranks
+    if not (all(r["ok"] and r["agree"] for r in ranks)
+            and np.array_equal(r0["frame_quat"], r1["frame_quat"])):
+        raise AssertionError("phase 11: the two gloo ranks' rotations "
+                             "differ")
+    gap = quat_angle_diff(r0["frame_quat"], one.frame_quat)
+    if not gap <= MESH_RA_RAD:
+        raise AssertionError(f"phase 11: component graph on two ranks "
+                             f"{gap} rad from the one-device solve")
+    errs = pairwise_errors_deg(r0["frame_quat"], q_gt, sample=2000)
+    st = r0["stats"]
+    summary = solve_summary(st)
+    sweeps = summary["l1_irls_sweeps"] + summary["irls_sweeps"]
+    return {"seconds": seconds, "rank_seconds": [r["seconds"] for r in ranks],
+            **summary, "sharded": [r["stats"]["sharded"] for r in ranks],
+            "allreduce_calls_per_sweep": st["sharded"]["allreduce_calls"]
+            / max(sweeps, 1),
+            "rotation_gap_to_one_device_rad": gap,
+            "rotation_gap_bound_rad": MESH_RA_RAD,
+            "pairwise_error_deg_sampled": {"max": float(errs.max()),
+                                           "median": float(np.median(errs))},
+            "bitwise_identical_ranks": True,
+            "launches": [r["launches"] for r in ranks]}
+
+
+def mesh_phase(database, capture, dev, card):
+    """Phase 11 on phase 9's database and phase 10's capture (its
+    generator scene, view graph and frame centers): (report, {path:
+    (recorded kernel inputs, launches)})."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    MESH_DIR.mkdir(parents=True)
+    *capture, gt_centers = capture
+    gt_quat = capture[0].frame_quat.copy()
+
+    a, launches_a = mesh_mapper_cli(database, dev)
+    print(f"# phase 11 (a): mapper --distributed "
+          f"{a['one_nccl_rank']['seconds']:.1f} s on one NCCL rank, "
+          f"{a['two_gloo_ranks']['seconds']:.1f} s on two gloo ranks",
+          file=sys.stderr)
+
+    one = capture_run(capture, dev)
+    # the replicated-point BA's reference: one block, no process group
+    t0 = time.perf_counter()
+    ref_cost, ref_it = solve_ba_sharded(
+        one["scene"].copy(), one["tracks"].copy(),
+        part_ba_options(MESH_SHARDED_BA_ITERS), 1, device=dev)
+    ref_s = time.perf_counter() - t0
+    store = MESH_DIR / "store_one_rank"
+    multihost.initialize(store.resolve().as_uri(), 1, 0, dev)
+    try:
+        mesh = capture_run(capture, dev, MESH_PARTS, record=True)
+        sba, sba_cases, sba_launches = sharded_ba_runs(one, dev)
+        c, city_cases, city_launches, city = sharded_city(dev)
+    finally:
+        multihost.shutdown()
+    b = {"one_device": capture_summary(one, gt_quat, gt_centers),
+         "mesh": capture_summary(mesh, gt_quat, gt_centers)}
+    reg = mesh["scene"].frame_registered & one["scene"].frame_registered
+    b["frames_registered_in_one_run_only"] = int(
+        (mesh["scene"].frame_registered != one["scene"].frame_registered)
+        .sum())
+    b["rotation_gap_mesh_vs_one_device_rad"] = quat_angle_diff(
+        mesh["scene"].frame_quat[reg], one["scene"].frame_quat[reg])
+    b["center_gap_mesh_vs_one_device_over_span"] = aligned_center_gap(
+        mesh["scene"].frame_centers()[reg], one["scene"].frame_centers()[reg])
+    gap = b["center_gap_mesh_vs_one_device_over_span"]
+    if not gap <= PART_CENTER_SPAN:
+        raise AssertionError(f"phase 11: stages 3-6 on 4 parts against one "
+                             f"device: centers {gap} of the span")
+    require_launched(mesh["launches"], BA_KERNELS, "stages 3-6 on 4 parts")
+    sba["cost_rel_to_one_block"] = abs(sba["cost"] - ref_cost) / ref_cost
+    if not sba["cost_rel_to_one_block"] <= PART_BA_COST_RTOL:
+        raise AssertionError(f"phase 11: replicated-point BA cost "
+                             f"{sba['cost_rel_to_one_block']} relative to "
+                             "one block")
+    sba["one_block"] = {"cost": ref_cost, "lm_iters": ref_it,
+                        "seconds": ref_s}
+    b["sharded_ba"] = sba
+    print(f"# phase 11 (b): stages 3-6 {b['mesh']['stages_4_6_s']:.1f} s "
+          f"on 4 parts, {b['one_device']['stages_4_6_s']:.1f} s on one "
+          f"device", file=sys.stderr)
+    # the city graph unsharded, for comparison
+    scene, vg, q_sharded = city
+    sc = scene.copy()
+    t0 = time.perf_counter()
+    if not estimate_rotations(sc, vg, device=dev):
+        raise AssertionError("phase 11: unsharded city graph failed")
+    c["unsharded_seconds"] = time.perf_counter() - t0
+    c["rotation_gap_to_unsharded_rad"] = quat_angle_diff(q_sharded,
+                                                         sc.frame_quat)
+    if not c["rotation_gap_to_unsharded_rad"] <= MESH_RA_RAD:
+        raise AssertionError(f"phase 11: sharded city graph "
+                             f"{c['rotation_gap_to_unsharded_rad']} rad "
+                             "from the unsharded solve")
+    c = {"city_one_nccl_rank": c,
+         "component_two_gloo_ranks": sharded_component_gloo(dev)}
+    print(f"# phase 11 (c): city graph "
+          f"{c['city_one_nccl_rank']['seconds']:.1f} s sharded, "
+          f"component graph {c['component_two_gloo_ranks']['seconds']:.1f} "
+          "s on two gloo ranks", file=sys.stderr)
+    report = {"parts": MESH_PARTS, "mapper_cli": a, "capture_stages_3_6": b,
+              "sharded_ra": c,
+              "phase_seconds": time.perf_counter() - t_phase, "card": card}
+    return report, {
+        "mesh_mapper": ({}, launches_a),
+        "mesh_capture": (mesh["cases"], mesh["launches"]),
+        "sharded_ba": (sba_cases, sba_launches),
+        "sharded_ra": (city_cases, city_launches)}
 
 
 def main() -> int:
@@ -3267,7 +3739,7 @@ def main() -> int:
     del ra_cases
 
     # phase 9: the mapper command from a COLMAP database of the sweep scene
-    mapper, mapper_paths = mapper_phase(dev, card)
+    mapper, mapper_paths, database = mapper_phase(dev, card)
     for path, (path_cases, path_launches) in mapper_paths.items():
         per_stage[path] = {n: ([], []) for n in MAPPER_KERNELS
                            if path == "mapper"
@@ -3280,7 +3752,7 @@ def main() -> int:
     del mapper_paths
 
     # phase 10: the partitioned solvers on the sequential capture
-    part, part_cases, part_launches = partitioned_phase(dev, card)
+    part, part_cases, part_launches, capture = partitioned_phase(dev, card)
     per_stage["partitioned"] = {n: ([], []) for n in BA_KERNELS}
     for (name, *_), (args, calls) in part_cases.items():
         res = measure_case(name, args, gen, peak_bw, peak_flops)
@@ -3288,6 +3760,20 @@ def main() -> int:
         per_stage["partitioned"][name][1].append(calls)
     stage_launches["partitioned"] = part_launches
     del part_cases
+
+    # phase 11: the multi-device mapper: the CLI on phase 9's database,
+    # stages 3-6 on phase 10's capture in 4 parts, the sharded RA
+    mesh, mesh_paths = mesh_phase(database, capture, dev, card)
+    del capture
+    for path, (path_cases, path_launches) in mesh_paths.items():
+        per_stage[path] = {n: ([], []) for n in MAPPER_KERNELS
+                           if any(k[0] == n for k in path_cases)}
+        for (name, *_), (args, calls) in path_cases.items():
+            res = measure_case(name, args, gen, peak_bw, peak_flops)
+            per_stage[path][name][0].append(res)
+            per_stage[path][name][1].append(calls)
+        stage_launches[path] = path_launches
+    del mesh_paths
 
     paths = [("ba", per_kernel, launches),
              ("inlier_sweep", per_sweep, sweep_launches)] + \
@@ -3335,6 +3821,7 @@ def main() -> int:
     print(json.dumps({"stage_3": {**ra, "card": card}}))
     print(json.dumps({"mapper": mapper}))
     print(json.dumps({"partitioned": part}))
+    print(json.dumps({"mesh": mesh}))
     print(card)
     # the run used one card
     print(json.dumps({"ok": True, "device": {

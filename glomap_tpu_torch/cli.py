@@ -8,16 +8,23 @@ config.py holds the whole registry):
 
     python -m glomap_tpu_torch.cli mapper --database_path DB \\
         --output_path O [--image_path I] [--checkpoint_dir D] [--device cpu]
+        [--distributed]
     python -m glomap_tpu_torch.cli mapper_resume --input_path M \\
-        --output_path O [--checkpoint_dir D] [--device cpu]
+        --output_path O [--checkpoint_dir D] [--device cpu] [--distributed]
     python -m glomap_tpu_torch.cli rotation_averager --relpose_path R \\
         --output_path O [--gravity_path G [--refine_gravity]] \\
         [--weight_path W] [--device cpu]
 
 The solvers run on the CUDA card unless --device names another device;
 without a card and without --device cpu a command fails before it reads
-its input. --distributed is not ported yet (ROADMAP A12): like any flag
-the commands do not know, it exits with 2.
+its input. With --distributed, each process is one rank of a
+torch.distributed group, named by GLOMAP_COORDINATOR (tcp://host:port or
+file:///path), GLOMAP_NUM_PROCESSES and GLOMAP_PROCESS_ID: NCCL on the
+rank's card, cuda:(rank % device_count), or gloo with --device cpu. The
+solvers of stages 3 and 5-7 split their work over the ranks
+(device_mesh_shape = (world size,)), every rank computes the same model,
+and only rank 0 writes it. A process that has joined a group already
+(several ranks on one card, under gloo) runs in that group.
 """
 
 from __future__ import annotations
@@ -163,6 +170,48 @@ def _device_or_exit(name):
         return None
 
 
+def _enter_distributed(opt, device) -> tuple:
+    """Join the process group that GLOMAP_COORDINATOR,
+    GLOMAP_NUM_PROCESSES and GLOMAP_PROCESS_ID name (parallel/multihost:
+    NCCL on the rank's card, gloo for a CPU device), unless this process
+    has joined one already, and put the solvers on the world's ranks:
+    device_mesh_shape = (world size,). Returns (whether this rank is the
+    primary, which writes the outputs; whether this call joined the
+    group). Missing variables raise initialize's ValueError."""
+    import torch.distributed as dist
+
+    from glomap_tpu_torch.parallel import multihost
+    joined = not dist.is_initialized()
+    if joined:
+        multihost.initialize(device="cpu" if device.type == "cpu" else None)
+    opt.device_mesh_shape = (multihost.world()[1],)
+    return multihost.is_primary(), joined
+
+
+def _solver_device(args, opt):
+    """(the solvers' device, whether this rank writes the outputs, whether
+    it joined a group it must leave), or None after printing why the
+    command cannot run."""
+    device = _device_or_exit(args.device)
+    if device is None:
+        return None
+    if not args.distributed:
+        return device, True, False
+    try:
+        primary, joined = _enter_distributed(opt, device)
+    except (ValueError, RuntimeError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return None
+    # the rank's own card, which initialize made the current device
+    return _device_or_exit(args.device), primary, joined
+
+
+def _leave(joined: bool) -> None:
+    if joined:
+        from glomap_tpu_torch.parallel import multihost
+        multihost.shutdown()
+
+
 def run_mapper(args, extra):
     from glomap_tpu_torch.controllers.global_mapper import GlobalMapper
     from glomap_tpu_torch.io.convert import (database_to_scene,
@@ -172,17 +221,23 @@ def run_mapper(args, extra):
     opt = _apply_dotted_flags(cfg.GlobalMapperOptions(), extra)
     if args.checkpoint_dir:
         opt.checkpoint_dir = args.checkpoint_dir
-    device = _device_or_exit(args.device)
-    if device is None:
+    entered = _solver_device(args, opt)
+    if entered is None:
         return 1
-    mapper = GlobalMapper(opt, device=device)
-    logging.info("Loading database %s", args.database_path)
-    with mapper.timer.stage("read database"):
-        scene, vg = database_to_scene(read_database(args.database_path))
-    tracks = mapper.solve(scene, vg)
+    device, primary, joined = entered
+    try:
+        mapper = GlobalMapper(opt, device=device)
+        logging.info("Loading database %s", args.database_path)
+        with mapper.timer.stage("read database"):
+            scene, vg = database_to_scene(read_database(args.database_path))
+        tracks = mapper.solve(scene, vg)
+    finally:
+        _leave(joined)
     if tracks is None:
         print("mapper failed", file=sys.stderr)
         return 1
+    if not primary:
+        return 0
     if args.image_path:
         from glomap_tpu_torch.processors.color_extraction import (
             extract_colors)
@@ -204,16 +259,22 @@ def run_mapper_resume(args, extra):
     opt = _apply_dotted_flags(cfg.mapper_resume_options(), extra)
     if args.checkpoint_dir:
         opt.checkpoint_dir = args.checkpoint_dir
-    device = _device_or_exit(args.device)
-    if device is None:
+    entered = _solver_device(args, opt)
+    if entered is None:
         return 1
-    mapper = GlobalMapper(opt, device=device)
-    with mapper.timer.stage("read model"):
-        scene, tracks = model_to_scene(args.input_path)
-    tracks = mapper.solve(scene, ViewGraph(), tracks)
+    device, primary, joined = entered
+    try:
+        mapper = GlobalMapper(opt, device=device)
+        with mapper.timer.stage("read model"):
+            scene, tracks = model_to_scene(args.input_path)
+        tracks = mapper.solve(scene, ViewGraph(), tracks)
+    finally:
+        _leave(joined)
     if tracks is None:
         print("mapper_resume failed", file=sys.stderr)
         return 1
+    if not primary:
+        return 0
     with mapper.timer.stage("write model"):
         dirs = write_reconstruction(args.output_path, scene, tracks,
                                     binary=args.output_format == "bin")
@@ -276,6 +337,11 @@ def main(argv=None):
     p.add_argument("--device", default=None,
                    help="torch device of the solvers (default: the CUDA "
                         "card; 'cpu' runs the plain PyTorch path in f64)")
+    p.add_argument("--distributed", action="store_true",
+                   help="join the torch.distributed group of "
+                        "GLOMAP_COORDINATOR / GLOMAP_NUM_PROCESSES / "
+                        "GLOMAP_PROCESS_ID and split the solvers over its "
+                        "ranks")
     p.set_defaults(func=run_mapper)
 
     p = sub.add_parser("mapper_resume",
@@ -294,6 +360,9 @@ def main(argv=None):
     p.add_argument("--device", default=None,
                    help="torch device of the solvers (default: the CUDA "
                         "card; 'cpu' runs the plain PyTorch path)")
+    p.add_argument("--distributed", action="store_true",
+                   help="join the torch.distributed group and split the "
+                        "solvers over its ranks")
     p.set_defaults(func=run_mapper_resume)
 
     p = sub.add_parser("rotation_averager",

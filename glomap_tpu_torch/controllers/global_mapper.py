@@ -17,8 +17,16 @@ observations changed), the deregistration of frames left without
 observations, and stage 8 (pruning), with the same thresholds and
 budgets, and stage-boundary checkpoints: with options.checkpoint_dir set,
 stage_NN.npz holds the exact state after stage NN, and the next run
-resumes at NN + 1. The multi-device solvers (device_mesh_shape) raise
-NotImplementedError before any stage runs, naming the ROADMAP item.
+resumes at NN + 1.
+
+With options.device_mesh_shape, its product is a number of parts, and
+the solvers of stages 3 (the edge-sharded rotation averaging), 5 (the
+partitioned global positioning) and 6 and 7 (the partitioned bundle
+adjustment) split their work into that many parts over the ranks of the
+default process group (parallel/), or one rank holds every part when no
+group was joined. Stages 0-2, 4 and 8 and the filters run replicated on
+every rank, with the same bits, as in the JAX package; every rank reads
+the checkpoints, and only the primary rank writes them.
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ from glomap_tpu_torch.estimators.relpose import estimate_relative_poses
 from glomap_tpu_torch.estimators.view_graph_calibration import (
     calibrate_view_graph)
 from glomap_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
+from glomap_tpu_torch.parallel import multihost
 from glomap_tpu_torch.processors import pair_inliers
 from glomap_tpu_torch.processors import relpose_filter as rpf
 from glomap_tpu_torch.processors import track_filter as tf
@@ -70,7 +79,8 @@ class GlobalMapper:
     (device=None without CUDA raises). `dtype` None means float64 on the
     CPU and float32 on CUDA, whose kernels take f32. After a run,
     `timer.stages` holds the seconds of each stage and `reports` what each
-    ported stage did, by stage name."""
+    ported stage did, by stage name. `num_parts` is the product of
+    options.device_mesh_shape (None without one): the solvers' parts."""
 
     def __init__(self, options: GlobalMapperOptions | None = None,
                  device=None, dtype: torch.dtype | None = None):
@@ -80,25 +90,33 @@ class GlobalMapper:
                                else torch.float32)
         self.timer = StageTimer(self.device)
         self.reports = {}
+        shape = self.options.device_mesh_shape
+        self.num_parts = int(np.prod(shape)) if shape else None
 
     def solve(self, scene: Scene, view_graph: ViewGraph,
               tracks: Tracks | None = None) -> Tracks | None:
         """Run the pipeline; mutates scene and view_graph, returns the
         tracks (None on failure)."""
         opt = self.options
-        if opt.device_mesh_shape:
-            raise NotImplementedError(
-                "the multi-device solvers are not ported (ROADMAP A12)")
+        if self.num_parts:
+            rank, size = multihost.world()
+            logger.info("solvers run in %d parts on %d rank(s) (rank %d)",
+                        self.num_parts, size, rank)
         start_stage, state = 0, None
         if opt.checkpoint_dir:
             start_stage, state = _latest_checkpoint(opt.checkpoint_dir)
+            if torch.distributed.is_initialized():
+                # every rank resumes from the same file: none reads after
+                # the primary writes this run's first checkpoint
+                torch.distributed.barrier()
         if state is not None:
             tracks = _resume_into(state, scene, view_graph, tracks)
         if start_stage <= 7 and not opt.skip_retriangulation:
             _require_view_graph(view_graph)
 
         def ckpt(idx):
-            if opt.checkpoint_dir:
+            # every rank holds the same state: one writes it
+            if opt.checkpoint_dir and multihost.is_primary():
                 _write_stage_checkpoint(opt.checkpoint_dir, idx, scene,
                                         view_graph, tracks)
 
@@ -250,8 +268,8 @@ class GlobalMapper:
             st = {"solves": []}
             t1 = device_clock(dev)
             st["ok"] = solve_rotation_averaging(
-                scene, vg, ra_opts, device=dev, dtype=self.dtype,
-                stats=st["solves"])
+                scene, vg, ra_opts, num_parts=self.num_parts, device=dev,
+                dtype=self.dtype, stats=st["solves"])
             st["seconds"] = device_clock(dev) - t1
             passes.append(st)
             return st["ok"]
@@ -309,7 +327,8 @@ class GlobalMapper:
         t1 = device_clock(dev)
         if not gpm.solve_global_positioning(scene, vg, tracks, opt.opt_gp,
                                             dtype=self.dtype, device=dev,
-                                            stats=gp):
+                                            stats=gp,
+                                            num_parts=self.num_parts):
             return False
         gp["seconds"] = device_clock(dev) - t1
         removed = {
@@ -345,7 +364,7 @@ class GlobalMapper:
             t1 = device_clock(dev)
             ok = solve_bundle_adjustment(scene, tracks, ba_opts,
                                          dtype=self.dtype, device=dev,
-                                         stats=st)
+                                         stats=st, num_parts=self.num_parts)
             st["seconds"] = device_clock(dev) - t1
             ba.append(st)
             return ok
@@ -425,7 +444,8 @@ class GlobalMapper:
                 t1 = device_clock(dev)
                 if not solve_bundle_adjustment(scene, tracks, opt.opt_ba,
                                                dtype=self.dtype, device=dev,
-                                               stats=ba):
+                                               stats=ba,
+                                               num_parts=self.num_parts):
                     return None
                 ba["seconds"] = device_clock(dev) - t1
                 # BA moved the intrinsics: re-lift the rays before the

@@ -10,7 +10,8 @@ problem. Sensors with an unknown cam_from_rig take the reference's
 trivial-rig scheme (:74-194): rotation averaging with every
 unknown-sensor image as its own frame, the sensor rotations from
 quaternion averages (rotation_initializer), then the rigged problem
-without re-initialization.
+without re-initialization. With num_parts every solve is the edge-sharded
+one (parallel/sharded_ra.py), as the JAX version's mesh= route.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from glomap_tpu_torch.config import RotationEstimatorOptions
 from glomap_tpu_torch.estimators.rotation_averaging import estimate_rotations
 from glomap_tpu_torch.estimators.rotation_initializer import (
     convert_rotations_from_image_to_rig)
+from glomap_tpu_torch.parallel.sharded_ra import solve_rotations_sharded
 from glomap_tpu_torch.scene.arrays import Scene
 from glomap_tpu_torch.scene.view_graph import ViewGraph
 
@@ -76,15 +78,16 @@ def _solve_trivial_expansion(scene: Scene, vg: ViewGraph, opts,
 
 def solve_rotation_averaging(scene: Scene, vg: ViewGraph,
                              opts: RotationAveragerOptions | None = None,
-                             mesh=None, device=None, dtype=None,
+                             num_parts: int | None = None,
+                             process_group=None, device=None, dtype=None,
                              stats: list | None = None) -> bool:
     """Keep the largest component, then solve. Runs on CUDA unless
-    `device` says otherwise; `dtype` as estimate_rotations. stats, when
-    given, gets one report per estimate_rotations call, in order."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the edge-sharded rotation averaging is not ported (ROADMAP "
-            "A12)")
+    `device` says otherwise; `dtype` as estimate_rotations. With
+    num_parts, every solve (the stratified and the trivial-rig ones
+    included) is the edge-sharded one over the ranks of process_group
+    (parallel/sharded_ra.py; the default group, or one rank holding every
+    part when none was joined). stats, when given, gets one report per
+    solve, in order."""
     opts = opts or RotationAveragerOptions()
     vg.keep_largest_connected_component(scene)
 
@@ -92,6 +95,10 @@ def solve_rotation_averaging(scene: Scene, vg: ViewGraph,
         st = {}
         if stats is not None:
             stats.append(st)
+        if num_parts:
+            return solve_rotations_sharded(
+                scene_, vg_, opts_, num_parts, process_group, device=device,
+                dtype=dtype, pair_mask=pair_mask, stats=st)
         return estimate_rotations(scene_, vg_, opts_, device=device,
                                   dtype=dtype, pair_mask=pair_mask, stats=st)
     return _solve_rotation_averaging(scene, vg, opts, est)

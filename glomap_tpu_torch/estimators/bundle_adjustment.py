@@ -164,7 +164,7 @@ def _solve_ba(frame_quat, frame_trans, cam_params, points,
               cam_kind=None,
               cg_tol: float = 1e-2,
               max_rejections: int = 8,
-              allreduce=None):
+              allreduce=None, replicated_points: bool = False):
     """Lane-major LM solve on the device of `points`, in its dtype.
 
     Same arguments and results as the JAX package's _solve_ba: returns
@@ -200,6 +200,13 @@ def _solve_ba(frame_quat, frame_trans, cam_params, points,
     sensor state bit for bit and takes the same LM and CG branches.
     Unset, nothing is summed and the solve is the single-device one.
 
+    replicated_points says that the points table is replicated too, each
+    rank holding a block of the observations (parallel/sharded_ba.py, the
+    JAX package's sharded BA): then the point-axis reductions (g_p, the
+    B_p blocks, and the point partials of the Schur right-hand side, of
+    each CG matvec and of the back-substitution) go through allreduce as
+    well, and every rank holds the same points.
+
     Host syncs per LM iteration: one per CG iteration plus one for the
     CG's first exit test, and one for the LM exit test."""
     if o_sensor is None:
@@ -220,8 +227,8 @@ def _solve_ba(frame_quat, frame_trans, cam_params, points,
     total = allreduce or (lambda t: t)
     _, gather_f, rpairs_f, _ = make_axis_pair_ops(o_frame, F, allreduce)
     _, gather_c, rpairs_c, _ = make_axis_pair_ops(o_cam, C, allreduce)
-    reduce_p, gather_p, rpairs_p, gdot_p = make_axis_pair_ops(o_point,
-                                                              num_points)
+    reduce_p, gather_p, rpairs_p, gdot_p = make_axis_pair_ops(
+        o_point, num_points, allreduce if replicated_points else None)
     # frame-sensor axis: the pose tables and the fused CG matvec ride it
     reduce_fs, gather_fs, _, gdot_fs = make_axis_pair_ops(
         o_frame * S + o_sensor, F * S)

@@ -11,11 +11,18 @@ over the doubled edge list, the matrix-free apply gathers with one B2
 launch (kernels.gather) on the doubled list's far ends, and the dense matrix sums the weights of each distinct
 (row, column) entry with B3 and writes every entry once. No scatter adds
 with atomics, so the card's results are the same bits on every run.
+
+Split across the ranks of a process group (parallel/sharded_ra.py), a
+rank's LaplacianEdges holds its own edges and an `allreduce` hook, the
+JAX version's mesh axis: every sum onto the replicated node axis, and
+every norm over the edge axis, is summed across the ranks, so each rank
+holds the same bits.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Callable
 
 import torch
 
@@ -90,6 +97,10 @@ def cg_generic(matvec, b: torch.Tensor, minv_diag=None, max_iters: int = 100,
 DAMPING = 1e-10
 
 
+def _identity(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
 @dataclass(frozen=True)
 class LaplacianEdges:
     """The E edges (fi, fj) of a graph on num_nodes nodes, on the kernels'
@@ -98,8 +109,12 @@ class LaplacianEdges:
     E + r edge r seen from fj. `dst_axis` holds the far end of each row,
     dst = cat(fj, fi), for the gather. `entries` (None unless built with
     dense=True) is the axis of the distinct off-diagonal entries
-    (src, dst) of the doubled list, and `entry_flat` their flat indices
-    row * num_nodes + column."""
+    (src, dst) of the whole graph's doubled list, and `entry_flat` their
+    flat indices row * num_nodes + column.
+
+    `allreduce`, where given, sums a tensor across the ranks of a process
+    group, each rank holding its share of the graph's edges; then
+    `total_edges` counts the whole graph's."""
     fi: torch.Tensor
     fj: torch.Tensor
     num_nodes: int
@@ -107,32 +122,55 @@ class LaplacianEdges:
     dst_axis: SegmentAxis
     entries: SegmentAxis | None = None
     entry_flat: torch.Tensor | None = None
+    allreduce: Callable | None = None
+    total_edges: int = 0
 
     @staticmethod
     def build(fi: torch.Tensor, fj: torch.Tensor, num_nodes: int,
-              dense: bool = False) -> "LaplacianEdges":
+              dense: bool = False, allreduce=None,
+              all_edges: tuple | None = None) -> "LaplacianEdges":
+        """all_edges, (fi, fj) of the whole graph, is given when these
+        edges are one rank's share: the dense axis then indexes the whole
+        graph's distinct entries, so that every rank's partial sums line
+        up for one all_reduce."""
         fi, fj = fi.long(), fj.long()
         src, dst = torch.cat([fi, fj]), torch.cat([fj, fi])
         axis = SegmentAxis.build(src, num_nodes)
         dst_axis = SegmentAxis.build(dst, num_nodes)
+        gi, gj = (fi, fj) if all_edges is None else (
+            torch.as_tensor(e, device=fi.device).long() for e in all_edges)
         entries = flat = None
         if dense:
-            flat, inverse = torch.unique(src * num_nodes + dst,
-                                         return_inverse=True)
+            flat = torch.unique(torch.cat([gi * num_nodes + gj,
+                                           gj * num_nodes + gi]))
+            inverse = torch.searchsorted(flat, src * num_nodes + dst)
             entries = SegmentAxis.build(inverse, flat.shape[0])
         return LaplacianEdges(fi, fj, int(num_nodes), axis, dst_axis,
-                              entries, flat)
+                              entries, flat, allreduce, int(gi.shape[0]))
 
     @property
     def num_edges(self) -> int:
         return self.fi.shape[0]
 
+    def total(self, t: torch.Tensor) -> torch.Tensor:
+        """t summed across the ranks (t itself without a hook)."""
+        return (self.allreduce or _identity)(t)
+
+    def edge_norms(self, *vs: torch.Tensor) -> list:
+        """The 2-norm of each (E, k) edge tensor over the whole graph: on
+        one rank torch's vector_norm, across ranks the root of the summed
+        squares, all of them in one all_reduce."""
+        if self.allreduce is None:
+            return [torch.linalg.vector_norm(v) for v in vs]
+        return list(torch.sqrt(self.allreduce(
+            torch.stack([torch.sum(v * v) for v in vs]))))
+
     def edge_sums(self, vals_i: torch.Tensor,
                   vals_j: torch.Tensor) -> torch.Tensor:
         """(E, k) values landing at fi and at fj -> (num_nodes, k) sums:
-        one B3 launch."""
-        return kernels.rowsum(torch.cat([vals_i.T, vals_j.T], 1)
-                              .contiguous(), self.axis)
+        one B3 launch (and its sum across ranks)."""
+        return self.total(kernels.rowsum(torch.cat([vals_i.T, vals_j.T], 1)
+                                         .contiguous(), self.axis))
 
     def gather_dst(self, tab: torch.Tensor) -> torch.Tensor:
         """tab (num_nodes, k) -> (k, 2E) rows tab[dst] of the doubled list
@@ -144,10 +182,11 @@ def build_laplacian_dense(edges: LaplacianEdges,
                           w: torch.Tensor) -> torch.Tensor:
     """The weighted graph Laplacian (n, n) of edges built with dense=True:
     each entry's weights summed by B3 and written once, the degrees by B3
-    on the diagonal."""
+    on the diagonal. Across ranks the (nnz,) entry sums and the degrees
+    are summed, never the (n, n) matrix."""
     n = edges.num_nodes
-    off = kernels.rowsum(torch.cat([w, w])[None].contiguous(),
-                         edges.entries)
+    off = edges.total(kernels.rowsum(torch.cat([w, w])[None].contiguous(),
+                                     edges.entries))
     L = torch.zeros(n * n, dtype=w.dtype, device=w.device)
     L[edges.entry_flat] = -off[:, 0]
     L = L.view(n, n)
@@ -200,7 +239,7 @@ def laplacian_matvec(edges: LaplacianEdges, w2: torch.Tensor,
     degrees; `keep` zeroes the pinned node, whose row is the identity.
     A x is one B2 gather of x[dst] and one B3 sum by src."""
     xk = x * keep[:, None]
-    ax = kernels.rowsum((w2[None] * edges.gather_dst(xk)).contiguous(),
-                        edges.axis)
+    ax = edges.total(kernels.rowsum(
+        (w2[None] * edges.gather_dst(xk)).contiguous(), edges.axis))
     y = deg[:, None] * xk - ax
     return y * keep[:, None] + x * (1.0 - keep)[:, None]

@@ -9,8 +9,9 @@ CLI against the JAX package's, both on the CPU (the port in f64).
   clusters; where two clusters share two weak links the port merges them,
   as the reference does, and the JAX package does not (ROADMAP C.6).
 * GlobalMapper: resumed from a JAX run's stage_04.npz with poisoned
-  inputs, it ends where the JAX run ends; the multi-device solvers, not
-  ported, raise before any stage runs.
+  inputs, it ends where the JAX run ends; with device_mesh_shape its GP
+  and BA run in parts, it writes its checkpoints, and it ends near the
+  JAX run.
 * cli mapper_resume: the same JAX-written model through both packages'
   CLI gives the same images, points and tracks, and centers to 1e-6 of
   the extent; without CUDA and without --device cpu the port's
@@ -303,20 +304,34 @@ def test_controller_resumes_from_jax_stage_04(jax_run, tmp_path):
     assert sorted(p.name for p in ckpt.glob("stage_*.npz")) == written
 
 
-def test_unported_stage_raises_before_any_stage(tmp_path):
-    """The multi-device solvers (ROADMAP A12) are the one part of the
-    pipeline not ported: asking for them raises before any stage runs."""
+def test_mesh_route_runs_and_writes_checkpoints(jax_run, tmp_path):
+    """With device_mesh_shape, GP and BA run partitioned in 4 parts (one
+    rank holding every part), the stage checkpoints are written as on one
+    device, and the result is the JAX package's one-device run's within
+    the partitioned solvers' bound (tests/test_parallel.py:215: centers
+    within 1e-3 of the extent)."""
+    j_scene, j_tracks, _ = jax_run
     opts = _stage_options(tcfg, tmp_path / "ckpt")
-    opts.device_mesh_shape, item = (4,), "A12"
-    scene = scene_from_jax(synthesize_dataset(SyntheticOptions(
-        num_frames_per_rig=4, num_points3D=40))[0])
-    before = scene.frame_trans.copy()
+    opts.device_mesh_shape = (4,)
+    scene, vg = _fresh()
+    t_scene, t_vg = scene_from_jax(scene), view_graph_from_jax(vg)
     mapper = tgm.GlobalMapper(opts, device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        mapper.solve(scene, tgm.ViewGraph())
-    assert mapper.timer.stages == []
-    assert not (tmp_path / "ckpt").exists()
-    np.testing.assert_array_equal(scene.frame_trans, before)
+    assert mapper.num_parts == 4
+    t_tracks = mapper.solve(t_scene, t_vg)
+    assert t_tracks is not None
+    assert [n for n, _ in mapper.timer.stages] == [
+        "track establishment", "global positioning", "bundle adjustment"]
+    assert mapper.reports["global positioning"]["gp"]["partitioned"][
+        "parts"] == 4
+    assert all(b["partitioned"]["parts"] == 4
+               for b in mapper.reports["bundle adjustment"]["ba"])
+    assert sorted(p.name for p in (tmp_path / "ckpt").glob("stage_*.npz")) \
+        == [f"stage_{k:02d}.npz" for k in range(8)]
+    reg = j_scene.frame_registered
+    np.testing.assert_array_equal(t_scene.frame_registered, reg)
+    c_j = j_scene.frame_centers()[reg]
+    extent = np.linalg.norm(c_j.max(0) - c_j.min(0))
+    assert np.abs(t_scene.frame_centers()[reg] - c_j).max() <= 1e-3 * extent
 
 
 def _centers(images):

@@ -406,10 +406,16 @@ def test_world_entry_points_default_to_the_card(monkeypatch, tmp_path,
 
 
 def test_dryrun_multichip():
-    """The JAX package's dry run (BA and GP sections) on 4 parts."""
+    """The JAX package's dry run (BA, GP, RA and full-mapper sections) on
+    4 parts; the mapper section's own checks are the JAX dry run's."""
     out = dryrun.dryrun_multichip(4, device="cpu")
     assert np.isfinite(out["ba"]["cost"]) and out["gp"]["ok"]
     assert out["ba"]["stats"]["partitioned"]["parts"] == 4
+    assert out["ra"]["sharded"]["parts"] == 4
+    m = out["mapper"]
+    assert min(m["part_sizes"]) >= 2 and m["center_gap"] < 0.1
+    assert abs(m["mean_obs_error"] - m["mean_obs_error_one_part"]) <= \
+        0.1 * m["mean_obs_error_one_part"] + 1e-6
 
 
 @pytest.mark.slow
