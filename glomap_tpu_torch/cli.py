@@ -217,6 +217,7 @@ def run_mapper(args, extra):
     from glomap_tpu_torch.io.convert import (database_to_scene,
                                              write_reconstruction)
     from glomap_tpu_torch.io.database import read_database
+    from glomap_tpu_torch.utils.profiling import span
 
     opt = _apply_dotted_flags(cfg.GlobalMapperOptions(), extra)
     if args.checkpoint_dir:
@@ -229,7 +230,10 @@ def run_mapper(args, extra):
         mapper = GlobalMapper(opt, device=device)
         logging.info("Loading database %s", args.database_path)
         with mapper.timer.stage("read database"):
-            scene, vg = database_to_scene(read_database(args.database_path))
+            with span("read database/files"):
+                db = read_database(args.database_path)
+            with span("read database/scene"):
+                scene, vg = database_to_scene(db)
         tracks = mapper.solve(scene, vg)
     finally:
         _leave(joined)
@@ -379,7 +383,11 @@ def main(argv=None):
     p.set_defaults(func=run_rotation_averager)
 
     args, extra = parser.parse_known_args(argv)
-    return args.func(args, extra)
+    from glomap_tpu_torch.utils.profiling import span
+
+    # the command's root span: its stages and their spans are children
+    with span(args.command):
+        return args.func(args, extra)
 
 
 if __name__ == "__main__":

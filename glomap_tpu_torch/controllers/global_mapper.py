@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import glob
 import logging
 import os
@@ -64,7 +65,7 @@ from glomap_tpu_torch.processors.pruning import prune_weakly_connected_images
 from glomap_tpu_torch.processors.undistortion import undistort_images
 from glomap_tpu_torch.scene.arrays import Scene, Tracks
 from glomap_tpu_torch.scene.view_graph import ViewGraph
-from glomap_tpu_torch.utils.profiling import StageTimer, device_clock
+from glomap_tpu_torch.utils.profiling import StageTimer, span
 
 logger = logging.getLogger(__name__)
 
@@ -74,12 +75,30 @@ RETRIANGULATION_ROUNDS = 5
 RETRIANGULATION_CHANGE = 5e-4
 
 
+def _stage(name: str):
+    """Run a GlobalMapper method as the stage `name` of its timer; the
+    report the call stores under `name` gets the stage's seconds."""
+    def wrap(method):
+        @functools.wraps(method)
+        def run(self, *args):
+            before = self.reports.get(name)
+            with self.timer.stage(name) as sp:
+                out = method(self, *args)
+            rep = self.reports.get(name)
+            if rep is not None and rep is not before:
+                rep["seconds"] = sp.seconds
+            return out
+        return run
+    return wrap
+
+
 class GlobalMapper:
     """The pipeline on one device: CUDA unless `device` says otherwise
     (device=None without CUDA raises). `dtype` None means float64 on the
-    CPU and float32 on CUDA, whose kernels take f32. After a run,
-    `timer.stages` holds the seconds of each stage and `reports` what each
-    ported stage did, by stage name. `num_parts` is the product of
+    CPU and float32 on CUDA, whose kernels take f32. Each stage method
+    runs as one stage of `timer`, from solve() or called alone. After a
+    run, `timer.stages` holds the seconds of each stage and `reports` what
+    each ported stage did, by stage name. `num_parts` is the product of
     options.device_mesh_shape (None without one): the solvers' parts."""
 
     def __init__(self, options: GlobalMapperOptions | None = None,
@@ -122,57 +141,49 @@ class GlobalMapper:
 
         # 0. Preprocessing
         if start_stage <= 0 and not opt.skip_preprocessing:
-            with self.timer.stage("preprocessing"):
-                self.preprocessing(scene, view_graph)
+            self.preprocessing(scene, view_graph)
         ckpt(0)
 
         # 1. View graph calibration
         if start_stage <= 1 and not opt.skip_view_graph_calibration:
-            with self.timer.stage("view graph calibration"):
-                if not self.view_graph_calibration(scene, view_graph):
-                    return None
+            if not self.view_graph_calibration(scene, view_graph):
+                return None
         ckpt(1)
 
         # 2. Relative pose estimation
         if start_stage <= 2 and not opt.skip_relative_pose_estimation:
-            with self.timer.stage("relative pose estimation"):
-                if not self.relative_pose_estimation(scene, view_graph):
-                    return None
+            if not self.relative_pose_estimation(scene, view_graph):
+                return None
         ckpt(2)
 
         # 3. Rotation averaging (a filter pass and a final pass)
         if start_stage <= 3 and not opt.skip_rotation_averaging:
-            with self.timer.stage("rotation averaging"):
-                if not self.rotation_averaging(scene, view_graph):
-                    return None
+            if not self.rotation_averaging(scene, view_graph):
+                return None
         ckpt(3)
 
         # 4. Track establishment and selection
         if start_stage <= 4 and not opt.skip_track_establishment:
-            with self.timer.stage("track establishment"):
-                tracks = self.establish_tracks(scene, view_graph)
+            tracks = self.establish_tracks(scene, view_graph)
         if tracks is None:
             tracks = Tracks()
         ckpt(4)
 
         # 5. Global positioning
         if start_stage <= 5 and not opt.skip_global_positioning:
-            with self.timer.stage("global positioning"):
-                if not self.global_positioning(scene, view_graph, tracks):
-                    return None
+            if not self.global_positioning(scene, view_graph, tracks):
+                return None
         ckpt(5)
 
         # 6. Iterated staged bundle adjustment
         if start_stage <= 6 and not opt.skip_bundle_adjustment:
-            with self.timer.stage("bundle adjustment"):
-                if not self.bundle_adjustment(scene, tracks):
-                    return None
+            if not self.bundle_adjustment(scene, tracks):
+                return None
         ckpt(6)
 
         # 7. Retriangulation
         if start_stage <= 7 and not opt.skip_retriangulation:
-            with self.timer.stage("retriangulation"):
-                tracks = self.retriangulation(scene, view_graph, tracks)
+            tracks = self.retriangulation(scene, view_graph, tracks)
             if tracks is None:
                 return None
         ckpt(7)
@@ -189,13 +200,13 @@ class GlobalMapper:
         logger.info("stage summary:\n%s", self.timer.summary())
         return tracks
 
+    @_stage("preprocessing")
     def preprocessing(self, scene: Scene, vg: ViewGraph) -> None:
         """Stage 0: sparsify the view graph (when
         sparsify_expected_degree > 0), promote the UNCALIBRATED pairs
         between majority-calibrated cameras, and re-derive the relative
         poses from E and H."""
         opt, dev = self.options, self.device
-        t0 = device_clock(dev)
         rep = {"sparsified_pairs": 0}
         if opt.sparsify_expected_degree > 0:
             rep["sparsified_pairs"] = vgm.sparsify_graph(
@@ -204,21 +215,20 @@ class GlobalMapper:
         rep["decomposition"] = {}
         vgm.decompose_rel_pose(scene, vg, device=dev, dtype=self.dtype,
                                stats=rep["decomposition"])
-        rep["seconds"] = device_clock(dev) - t0
         self.reports["preprocessing"] = rep
 
+    @_stage("view graph calibration")
     def view_graph_calibration(self, scene: Scene, vg: ViewGraph) -> bool:
         """Stage 1: the focals of the cameras without a prior, from the F
         matrices; False when the solve diverges."""
-        dev = self.device
-        t0 = device_clock(dev)
         rep = {}
         ok = calibrate_view_graph(scene, vg, self.options.opt_vgcalib,
-                                  dtype=self.dtype, device=dev, stats=rep)
-        rep["seconds"] = device_clock(dev) - t0
+                                  dtype=self.dtype, device=self.device,
+                                  stats=rep)
         self.reports["view graph calibration"] = rep
         return ok
 
+    @_stage("relative pose estimation")
     def relative_pose_estimation(self, scene: Scene, vg: ViewGraph) -> bool:
         """Stage 2: lift the keypoints, estimate every pair's relative
         pose, classify every match (the inlier sweep), filter the pairs
@@ -226,16 +236,16 @@ class GlobalMapper:
         component; False when no component is left."""
         opt, dev = self.options, self.device
         thr = opt.inlier_thresholds
-        t0 = device_clock(dev)
-        undistort_images(scene, device=dev)
-        t1 = device_clock(dev)
+        with span("frontend/undistort") as undistort:
+            undistort_images(scene, device=dev)
         relpose = {}
-        estimate_relative_poses(scene, vg, opt.opt_relpose, dtype=self.dtype,
-                                device=dev, stats=relpose)
-        t2 = device_clock(dev)
-        pair_inliers.image_pairs_inlier_count(scene, vg, thr, device=dev,
-                                              dtype=self.dtype)
-        t3 = device_clock(dev)
+        with span("frontend/relpose") as estimate:
+            estimate_relative_poses(scene, vg, opt.opt_relpose,
+                                    dtype=self.dtype, device=dev,
+                                    stats=relpose)
+        with span("frontend/inliers") as inliers:
+            pair_inliers.image_pairs_inlier_count(scene, vg, thr, device=dev,
+                                                  dtype=self.dtype)
         filtered = {"inlier_num": rpf.filter_inlier_num(
                         vg, thr.min_inlier_num),
                     "inlier_ratio": rpf.filter_inlier_ratio(
@@ -244,8 +254,9 @@ class GlobalMapper:
         num_img = vg.keep_largest_connected_component(scene)
         filtered["largest_component"] = valid - int(vg.pair_valid.sum())
         self.reports["relative pose estimation"] = {
-            "seconds": device_clock(dev) - t0, "undistort_s": t1 - t0,
-            "estimate_s": t2 - t1, "inlier_count_s": t3 - t2,
+            "undistort_s": undistort.seconds,
+            "estimate_s": estimate.seconds,
+            "inlier_count_s": inliers.seconds,
             "relpose": relpose, "pairs_filtered": filtered,
             "component_images": num_img}
         if num_img == 0:
@@ -253,6 +264,7 @@ class GlobalMapper:
             return False
         return True
 
+    @_stage("rotation averaging")
     def rotation_averaging(self, scene: Scene, vg: ViewGraph) -> bool:
         """Stage 3: rotation averaging, the rotation filter and the
         largest connected component, twice. As in the JAX package, the
@@ -261,16 +273,15 @@ class GlobalMapper:
         opt, dev = self.options, self.device
         max_err = opt.inlier_thresholds.max_rotation_error
         ra_opts = RotationAveragerOptions(**dataclasses.asdict(opt.opt_ra))
-        t0 = device_clock(dev)
         passes = []
 
         def solve() -> bool:
             st = {"solves": []}
-            t1 = device_clock(dev)
-            st["ok"] = solve_rotation_averaging(
-                scene, vg, ra_opts, num_parts=self.num_parts, device=dev,
-                dtype=self.dtype, stats=st["solves"])
-            st["seconds"] = device_clock(dev) - t1
+            with span("ra/solve") as sp:
+                st["ok"] = solve_rotation_averaging(
+                    scene, vg, ra_opts, num_parts=self.num_parts, device=dev,
+                    dtype=self.dtype, stats=st["solves"])
+            st["seconds"] = sp.seconds
             passes.append(st)
             return st["ok"]
 
@@ -293,25 +304,24 @@ class GlobalMapper:
             return False
         logger.info("%d / %d images within the connected component",
                     num_img, scene.num_images)
-        self.reports["rotation averaging"] = {
-            "seconds": device_clock(dev) - t0, "passes": passes}
+        self.reports["rotation averaging"] = {"passes": passes}
         return True
 
+    @_stage("track establishment")
     def establish_tracks(self, scene: Scene, vg: ViewGraph) -> Tracks:
         """Stage 4: every track of the inlier matches, then the selection
         for the problem."""
         opt = self.options
-        t0 = device_clock(self.device)
         full = te.establish_full_tracks(scene, vg, opt.opt_track)
         tracks = te.find_tracks_for_problem(scene, full, opt.opt_track)
         logger.info("Before filtering: %d, after filtering: %d",
                     full.num_tracks, tracks.num_tracks)
         self.reports["track establishment"] = {
-            "seconds": device_clock(self.device) - t0,
             "tracks_full": full.num_tracks, "tracks": tracks.num_tracks,
             "observations": tracks.num_obs}
         return tracks
 
+    @_stage("global positioning")
     def global_positioning(self, scene: Scene, vg: ViewGraph,
                            tracks: Tracks) -> bool:
         """Stage 5: global positioning, its three filters, normalization,
@@ -321,34 +331,37 @@ class GlobalMapper:
         if opt.opt_gp.constraint_type != "ONLY_POINTS":
             logger.error("Only points are used for camera positions")
             return False
-        t0 = device_clock(dev)
-        undistort_images(scene, device=dev)
+        with span("gp/undistort"):
+            undistort_images(scene, device=dev)
         gp = {}
-        t1 = device_clock(dev)
-        if not gpm.solve_global_positioning(scene, vg, tracks, opt.opt_gp,
-                                            dtype=self.dtype, device=dev,
-                                            stats=gp,
-                                            num_parts=self.num_parts):
-            return False
-        gp["seconds"] = device_clock(dev) - t1
-        removed = {
-            "angle_obs": tf.filter_tracks_by_angle(
-                scene, tracks, thr.max_angle_error),
-            "triangulation_angle_tracks":
-                tf.filter_tracks_by_triangulation_angle(
-                    scene, tracks, thr.min_triangulation_angle),
-            "reprojection_obs": tf.filter_tracks_by_reprojection(
-                scene, tracks, 10 * thr.max_reprojection_error)}
-        normalize_reconstruction(scene, tracks)
+        with span("gp/solve") as sp:
+            if not gpm.solve_global_positioning(scene, vg, tracks,
+                                                opt.opt_gp, dtype=self.dtype,
+                                                device=dev, stats=gp,
+                                                num_parts=self.num_parts):
+                return False
+        gp["seconds"] = sp.seconds
+        with span("gp/filter"):
+            removed = {
+                "angle_obs": tf.filter_tracks_by_angle(
+                    scene, tracks, thr.max_angle_error),
+                "triangulation_angle_tracks":
+                    tf.filter_tracks_by_triangulation_angle(
+                        scene, tracks, thr.min_triangulation_angle),
+                "reprojection_obs": tf.filter_tracks_by_reprojection(
+                    scene, tracks, 10 * thr.max_reprojection_error)}
+        with span("gp/normalize"):
+            normalize_reconstruction(scene, tracks)
         # GP's random init can leave a frame that LM never pulled in
         # failing every filter above, with no observation left: place it
         # from its neighbors' pair directions
-        removed["rescued_frames"] = gpm.rescue_unplaced_frames(scene, vg,
-                                                               tracks)
-        self.reports["global positioning"] = {
-            "seconds": device_clock(dev) - t0, "gp": gp, "removed": removed}
+        with span("gp/rescue"):
+            removed["rescued_frames"] = gpm.rescue_unplaced_frames(
+                scene, vg, tracks)
+        self.reports["global positioning"] = {"gp": gp, "removed": removed}
         return True
 
+    @_stage("bundle adjustment")
     def bundle_adjustment(self, scene: Scene, tracks: Tracks) -> bool:
         """Stage 6: rounds of BA (position only, then full), each followed
         by normalization, the ray refresh and the progressive reprojection
@@ -356,16 +369,16 @@ class GlobalMapper:
         opt, dev = self.options, self.device
         thr = opt.inlier_thresholds
         rounds = opt.num_iteration_bundle_adjustment
-        t0 = device_clock(dev)
         ba, progressive = [], []
 
         def solve(ba_opts) -> bool:
             st = {}
-            t1 = device_clock(dev)
-            ok = solve_bundle_adjustment(scene, tracks, ba_opts,
-                                         dtype=self.dtype, device=dev,
-                                         stats=st, num_parts=self.num_parts)
-            st["seconds"] = device_clock(dev) - t1
+            with span("ba/solve") as sp:
+                ok = solve_bundle_adjustment(scene, tracks, ba_opts,
+                                             dtype=self.dtype, device=dev,
+                                             stats=st,
+                                             num_parts=self.num_parts)
+            st["seconds"] = sp.seconds
             ba.append(st)
             return ok
 
@@ -381,16 +394,19 @@ class GlobalMapper:
             if opt.opt_ba.optimize_rotations and not solve(opt.opt_ba):
                 return False
             logger.info("BA iter %d/%d stage 2 done", ite + 1, rounds)
-            normalize_reconstruction(scene, tracks)
+            with span("ba/normalize"):
+                normalize_reconstruction(scene, tracks)
             # BA moved the intrinsics: re-lift the rays before the
             # normalized-space filter (global_mapper.cc:237-238)
-            _refresh_rays(scene, prev_cam_params, dev)
+            with span("ba/refresh_rays"):
+                _refresh_rays(scene, prev_cam_params, dev)
             # progressive filtering with early exit (<0.1% filtered)
             status, filtered = True, 0
             while status and ite < rounds:
-                n = tf.filter_tracks_by_reprojection(
-                    scene, tracks,
-                    max(3 - ite, 1) * thr.max_reprojection_error)
+                with span("ba/filter"):
+                    n = tf.filter_tracks_by_reprojection(
+                        scene, tracks,
+                        max(3 - ite, 1) * thr.max_reprojection_error)
                 progressive.append(n)
                 filtered += n
                 if filtered > 1e-3 * max(tracks.num_tracks, 1):
@@ -403,17 +419,19 @@ class GlobalMapper:
 
         # final filters at the tight threshold, against rays lifted with
         # the final intrinsics (global_mapper.cc:263-264)
-        final = {
-            "reprojection_obs": tf.filter_tracks_by_reprojection(
-                scene, tracks, thr.max_reprojection_error),
-            "triangulation_angle_tracks":
-                tf.filter_tracks_by_triangulation_angle(
-                    scene, tracks, thr.min_triangulation_angle)}
+        with span("ba/filter"):
+            final = {
+                "reprojection_obs": tf.filter_tracks_by_reprojection(
+                    scene, tracks, thr.max_reprojection_error),
+                "triangulation_angle_tracks":
+                    tf.filter_tracks_by_triangulation_angle(
+                        scene, tracks, thr.min_triangulation_angle)}
         self.reports["bundle adjustment"] = {
-            "seconds": device_clock(dev) - t0, "ba": ba,
-            "progressive_obs_removed": progressive, "final_removed": final}
+            "ba": ba, "progressive_obs_removed": progressive,
+            "final_removed": final}
         return True
 
+    @_stage("retriangulation")
     def retriangulation(self, scene: Scene, vg: ViewGraph,
                         tracks: Tracks) -> Tracks | None:
         """Stage 7: each of num_iteration_retriangulation iterations
@@ -429,29 +447,29 @@ class GlobalMapper:
         opt, dev = self.options, self.device
         thr, tri = opt.inlier_thresholds, opt.opt_triangulator
         _require_matches(vg)
-        t0 = device_clock(dev)
         iterations = []
         for _ in range(opt.num_iteration_retriangulation):
             retri = {}
-            t1 = device_clock(dev)
-            tracks = retriangulate_tracks(scene, vg, tracks, tri, device=dev,
-                                          dtype=self.dtype, stats=retri)
-            retri["seconds"] = device_clock(dev) - t1
+            with span("retri/triangulate") as sp:
+                tracks = retriangulate_tracks(scene, vg, tracks, tri,
+                                              device=dev, dtype=self.dtype,
+                                              stats=retri)
+            retri["seconds"] = sp.seconds
             rounds, prev_keys = [], None
             for _ in range(RETRIANGULATION_ROUNDS):
                 prev_cam_params = scene.cam_params.copy()
                 ba = {}
-                t1 = device_clock(dev)
-                if not solve_bundle_adjustment(scene, tracks, opt.opt_ba,
-                                               dtype=self.dtype, device=dev,
-                                               stats=ba,
-                                               num_parts=self.num_parts):
-                    return None
-                ba["seconds"] = device_clock(dev) - t1
+                with span("ba/solve") as sp:
+                    if not solve_bundle_adjustment(
+                            scene, tracks, opt.opt_ba, dtype=self.dtype,
+                            device=dev, stats=ba, num_parts=self.num_parts):
+                        return None
+                ba["seconds"] = sp.seconds
                 # BA moved the intrinsics: re-lift the rays before the
                 # complete, merge and filter passes (global_mapper.cc:
                 # 237-238)
-                _refresh_rays(scene, prev_cam_params, dev)
+                with span("ba/refresh_rays"):
+                    _refresh_rays(scene, prev_cam_params, dev)
                 num_obs = max(int(tracks.obs_valid.sum()), 1)
                 rnd = {"ba": ba,
                        "completed": tf.complete_tracks(
@@ -481,9 +499,8 @@ class GlobalMapper:
             "triangulation_angle_tracks":
                 tf.filter_tracks_by_triangulation_angle(
                     scene, tracks, thr.min_triangulation_angle)}
-        self.reports["retriangulation"] = {
-            "seconds": device_clock(dev) - t0, "iterations": iterations,
-            "final_removed": final}
+        self.reports["retriangulation"] = {"iterations": iterations,
+                                           "final_removed": final}
         return tracks
 
 

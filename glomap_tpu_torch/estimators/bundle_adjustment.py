@@ -21,7 +21,6 @@ the card, their plain versions on the CPU).
 from __future__ import annotations
 
 import logging
-import time
 
 import numpy as np
 import torch
@@ -34,6 +33,7 @@ from glomap_tpu_torch.ops import kernels
 from glomap_tpu_torch.ops.linear import cg_generic, inv3x3
 from glomap_tpu_torch.ops.segment_ops import make_axis_pair_ops
 from glomap_tpu_torch.scene.arrays import Scene, Tracks
+from glomap_tpu_torch.utils import profiling
 
 # canonical distortion slots used by each COLMAP model
 _DIST_SLOTS = {
@@ -208,9 +208,12 @@ def _solve_ba(frame_quat, frame_trans, cam_params, points,
     well, and every rank holds the same points.
 
     Host syncs per LM iteration: one per CG iteration plus one for the
-    CG's first exit test, and one for the LM exit test."""
+    CG's first exit test, and one for the LM exit test; each is counted
+    as a `host_reads` of the "ba/lm" span (utils/profiling.py), which
+    also counts the solve's `lm_iters` and `cg_iters`."""
     if o_sensor is None:
         raise ValueError("_solve_ba needs o_sensor (the table path)")
+    plan = profiling.span("ba/plan").start()
     dtype = points.dtype
     dev = points.device
     zdim = 31 if optimize_rig else 25
@@ -488,12 +491,16 @@ def _solve_ba(frame_quat, frame_trans, cam_params, points,
              compute_cost(frame_quat, frame_trans, cam_params, points,
                           sensor_quat, sensor_trans),
              torch.zeros((), dtype=torch.int64, device=dev))
+    plan.stop()
     it, cg_total, done = 0, 0, False
-    while it < max_iters and not done:
-        state, done_t, cg_it = lm_step(*state)
-        it += 1
-        cg_total += cg_it
-        done = bool(done_t)
+    with profiling.span("ba/lm"):
+        while it < max_iters and not done:
+            state, done_t, cg_it = lm_step(*state)
+            it += 1
+            cg_total += cg_it
+            done = profiling.host_bool(done_t)
+        profiling.count("lm_iters", it)
+        profiling.count("cg_iters", cg_total)
     fq, ft, cp, X, sq, st, lam, cost, _ = state
     return fq, ft, cp, X, cost, it, sq, st, cg_total, lam, done
 
@@ -594,8 +601,12 @@ def solve_bundle_adjustment(scene: Scene, tracks: Tracks,
     workaround) and its host-segmented LM calls are gone. A `stats` dict,
     if given, receives the solve's observations, its LM and CG iterations,
     its final cost and the seconds of the solve after the host prep
-    ("obs", "lm_iters", "cg_iters", "cost", "solve_seconds"); every
-    device transfer and kernel of the call lies in that span.
+    ("obs", "lm_iters", "cg_iters", "cost", "solve_seconds": from the
+    start of the "ba/upload" span to the end of "ba/download"); every
+    device transfer and kernel of the call lies in that interval. The
+    spans, in order: "ba/prep" (the flat arrays and their layout),
+    "ba/upload", "ba/plan" and "ba/lm" (_solve_ba), "ba/download" (the
+    results' copies to the host and their write-back).
 
     With num_parts, the solve is split into that many parts over the
     ranks of process_group (the default group; one rank holding every
@@ -610,32 +621,37 @@ def solve_bundle_adjustment(scene: Scene, tracks: Tracks,
     opts = opts or BundleAdjusterOptions()
     if tracks.num_obs == 0:
         return False
-    t0 = time.monotonic()
-    params, obs, statics = build_ba_inputs(scene, tracks, opts)
-    n_obs = len(obs["o_frame"])
-    if n_obs == 0:
-        return False
-    if num_parts:
-        from glomap_tpu_torch.parallel.partitioned_ba import PartitionedBA
-        share = PartitionedBA(scene, tracks, obs, num_parts, process_group)
-        obs, point_ids = share.obs, share.point_ids
-    else:
-        obs_perm, point_ids, new_of_old = order_obs_for_locality(
-            obs["o_frame"], obs["o_point"], tracks.num_tracks)
-        obs = {k: v[obs_perm] for k, v in obs.items()}
-        obs["o_point"] = new_of_old[obs["o_point"]].astype(np.int32)
-    # the points table in the layout's order: row i is track point_ids[i]
-    params["points"] = params["points"][point_ids]
-    statics = dict(statics, num_points=len(point_ids))
+    with profiling.span("ba/prep") as prep:
+        params, obs, statics = build_ba_inputs(scene, tracks, opts)
+        n_obs = len(obs["o_frame"])
+        if n_obs == 0:
+            return False
+        if num_parts:
+            from glomap_tpu_torch.parallel.partitioned_ba import (
+                PartitionedBA)
+            share = PartitionedBA(scene, tracks, obs, num_parts,
+                                  process_group)
+            obs, point_ids = share.obs, share.point_ids
+        else:
+            obs_perm, point_ids, new_of_old = order_obs_for_locality(
+                obs["o_frame"], obs["o_point"], tracks.num_tracks)
+            obs = {k: v[obs_perm] for k, v in obs.items()}
+            obs["o_point"] = new_of_old[obs["o_point"]].astype(np.int32)
+        # the points table in the layout's order: row i is track
+        # point_ids[i]
+        params["points"] = params["points"][point_ids]
+        statics = dict(statics, num_points=len(point_ids))
 
-    # rig-pose optimization: only non-reference sensors move
-    sensor_mask = np.zeros((len(scene.sensor_quat), 6))
-    if opts.optimize_rig_poses:
-        sensor_mask[~scene.sensor_is_ref, :] = 1.0
-    t1 = time.monotonic()
+        # rig-pose optimization: only non-reference sensors move
+        sensor_mask = np.zeros((len(scene.sensor_quat), 6))
+        if opts.optimize_rig_poses:
+            sensor_mask[~scene.sensor_is_ref, :] = 1.0
+    with profiling.span("ba/upload") as upload:
+        inputs = ba_inputs_from_arrays(
+            {**params, **obs, "sensor_mask": sensor_mask}, statics, device,
+            dtype)
     fq, ft, cp, X, cost, it, sq, st, cg_total, _, _ = _solve_ba(
-        **ba_inputs_from_arrays({**params, **obs, "sensor_mask": sensor_mask},
-                                statics, device, dtype),
+        **inputs,
         huber_delta=statics["huber_delta"],
         function_tol=statics["function_tol"],
         max_iters=statics["max_iters"], cg_iters=statics["cg_iters"],
@@ -643,33 +659,34 @@ def solve_bundle_adjustment(scene: Scene, tracks: Tracks,
         optimize_rig=bool(opts.optimize_rig_poses),
         cg_tol=float(opts.cg_relative_tolerance),
         allreduce=share.allreduce if num_parts else None)
-    if num_parts:
-        X, point_ids = share.fetch_points(X)
-    fq, ft, cp, X, sq, st = (t.detach().to("cpu", torch.float64).numpy()
-                             for t in (fq, ft, cp, X, sq, st))
-    cost = float(cost)
-    t2 = time.monotonic()
+    with profiling.span("ba/download") as download:
+        if num_parts:
+            X, point_ids = share.fetch_points(X)
+        fq, ft, cp, X, sq, st = (t.detach().to("cpu", torch.float64).numpy()
+                                 for t in (fq, ft, cp, X, sq, st))
+        cost = float(cost)
+        ok = bool(np.all(np.isfinite(fq)) and np.all(np.isfinite(ft)) and
+                  np.all(np.isfinite(cp)) and np.all(np.isfinite(X)))
+        if ok:
+            scene.frame_quat[:] = fq
+            scene.frame_trans[:] = ft
+            scene.cam_params[:] = cp
+            if opts.optimize_rig_poses:
+                scene.sensor_quat[:] = sq
+                scene.sensor_trans[:] = st
+            if opts.optimize_points:
+                tracks.xyz[point_ids] = X  # undo the layout's renumbering
+    solve_s = download.t1 - upload.t0
     logging.getLogger(__name__).info(
         "BA solve: %d LM iters, cost %.3e, host prep %.2fs, solve %.2fs "
         "(%d obs, %d CG iters total, %.1f/LM, cap %d)",
-        it, cost, t1 - t0, t2 - t1, n_obs, cg_total, cg_total / max(it, 1),
-        int(opts.cg_max_iterations))
+        it, cost, prep.seconds, solve_s, n_obs, cg_total,
+        cg_total / max(it, 1), int(opts.cg_max_iterations))
     if stats is not None:
         stats.update(obs=n_obs, lm_iters=it, cg_iters=cg_total, cost=cost,
-                     solve_seconds=t2 - t1)
+                     solve_seconds=solve_s)
         if num_parts:
             stats["partitioned"] = share.stats(
                 statics, bool(opts.optimize_rig_poses),
                 torch.finfo(dtype).bits // 8)
-    if not (np.all(np.isfinite(fq)) and np.all(np.isfinite(ft)) and
-            np.all(np.isfinite(cp)) and np.all(np.isfinite(X))):
-        return False
-    scene.frame_quat[:] = fq
-    scene.frame_trans[:] = ft
-    scene.cam_params[:] = cp
-    if opts.optimize_rig_poses:
-        scene.sensor_quat[:] = sq
-        scene.sensor_trans[:] = st
-    if opts.optimize_points:
-        tracks.xyz[point_ids] = X  # undo the layout's renumbering
-    return True
+    return ok

@@ -30,7 +30,6 @@ Divergences by design (ROADMAP C.10):
 from __future__ import annotations
 
 import logging
-import time
 
 import numpy as np
 import torch
@@ -44,7 +43,7 @@ from glomap_tpu_torch.ops import smallalg as sa
 from glomap_tpu_torch.processors.undistortion import device_keypoints
 from glomap_tpu_torch.scene.arrays import Scene
 from glomap_tpu_torch.scene.view_graph import ViewGraph
-from glomap_tpu_torch.utils.profiling import device_clock
+from glomap_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -402,7 +401,7 @@ def estimate_relative_poses(scene: Scene, vg: ViewGraph,
                       else torch.float32)
     if vg.num_pairs == 0 or vg.num_matches == 0:
         return
-    t_prep = time.perf_counter()
+    prep = span("frontend/relpose_prep").start()
     P = vg.num_pairs
     cap = max(int(getattr(opts, "score_match_cap", 512) or 512), 16)
     tab, mask, counts_d = _pair_tables(scene, vg, cap, seed, device, dtype)
@@ -432,7 +431,8 @@ def estimate_relative_poses(scene: Scene, vg: ViewGraph,
     gen = torch.Generator(device=device).manual_seed(seed)
     best_E = torch.zeros((P, 3, 3), dtype=dtype, device=device)
     best_cnt = torch.zeros(P, dtype=torch.int64, device=device)
-    t0 = device_clock(device)
+    prep.stop()
+    ransac = span("frontend/ransac").start()
     n_chunks = 0
     while len(active):
         for a0 in range(0, len(active), TILE_PAIRS):
@@ -450,14 +450,14 @@ def estimate_relative_poses(scene: Scene, vg: ViewGraph,
         target = _stopping_number(best_cnt.cpu().numpy(), slots, min_hyp,
                                   max_hyp)
         active = np.nonzero(eligible & (done < target))[0]
-    t1 = device_clock(device)
-    q, t = _choose_pose_tab(best_E, tab, mask)
-    t2 = device_clock(device)
-    q, t = _refine_poses_tab(q, t, tab, mask, sq_thres,
-                             int(opts.refine_num_lm_iters))
-    vg.pair_quat = q.cpu().double().numpy()
-    vg.pair_trans = t.cpu().double().numpy()
-    t3 = time.perf_counter()
+    ransac.stop()
+    with span("frontend/choose") as choose:
+        q, t = _choose_pose_tab(best_E, tab, mask)
+    with span("frontend/refine") as refine:
+        q, t = _refine_poses_tab(q, t, tab, mask, sq_thres,
+                                 int(opts.refine_num_lm_iters))
+        vg.pair_quat = q.cpu().double().numpy()
+        vg.pair_trans = t.cpu().double().numpy()
     vg.pair_E = rotm.host(tv.essential_from_motion, vg.pair_quat,
                           vg.pair_trans)
     # hypotheses spent per pair (ineligible pairs stay at 0)
@@ -465,9 +465,10 @@ def estimate_relative_poses(scene: Scene, vg: ViewGraph,
     spent = done[eligible] if eligible.any() else np.zeros(1, np.int64)
     logger.info("relpose: ransac %.2fs (%d chunks of %d hypotheses; "
                 "hypotheses/pair min %d / mean %d / max %d over %d eligible "
-                "pairs), choose %.2fs, refine %.2fs", t1 - t0, n_chunks,
-                chunk_hyp, spent.min(), int(spent.mean()), spent.max(),
-                int(eligible.sum()), t2 - t1, t3 - t2)
+                "pairs), choose %.2fs, refine %.2fs", ransac.seconds,
+                n_chunks, chunk_hyp, spent.min(), int(spent.mean()),
+                spent.max(), int(eligible.sum()), choose.seconds,
+                refine.seconds)
     if stats is not None:
         stats.update(
             pairs=P, eligible_pairs=int(eligible.sum()), chunks=n_chunks,
@@ -475,5 +476,5 @@ def estimate_relative_poses(scene: Scene, vg: ViewGraph,
             hypotheses_per_pair={"min": int(spent.min()),
                                  "mean": float(spent.mean()),
                                  "max": int(spent.max())},
-            prep_s=t0 - t_prep, ransac_s=t1 - t0, choose_s=t2 - t1,
-            refine_s=t3 - t2)
+            prep_s=prep.seconds, ransac_s=ransac.seconds,
+            choose_s=choose.seconds, refine_s=refine.seconds)

@@ -3,7 +3,8 @@
 Counterpart of glomap_tpu/ops/linear.py (inv3x3, build_laplacian_dense,
 pin_node, solve_laplacian_dense, laplacian_matvec, cg_generic). The JAX
 `lax.while_loop` of cg_generic becomes a Python loop with the same exit
-test; that test reads one scalar back to the host per CG iteration.
+test; that test reads one scalar back to the host per CG iteration,
+counted as a `host_reads` of the innermost span (utils/profiling.py).
 
 The graph Laplacians of rotation averaging read their edges through
 `LaplacianEdges`: every edge-to-node sum is one B3 launch (kernels.rowsum)
@@ -28,6 +29,7 @@ import torch
 
 from glomap_tpu_torch.ops import kernels
 from glomap_tpu_torch.ops.kernels import SegmentAxis
+from glomap_tpu_torch.utils.profiling import host_bool
 
 
 def inv3x3(A: torch.Tensor) -> torch.Tensor:
@@ -76,7 +78,8 @@ def cg_generic(matvec, b: torch.Tensor, minv_diag=None, max_iters: int = 100,
     rz = torch.sum(r * z)
     bnorm = torch.clamp(torch.linalg.vector_norm(b), min=1e-30)
     it = 0
-    while it < max_iters and bool(torch.linalg.vector_norm(r) / bnorm > tol):
+    while it < max_iters and host_bool(
+            torch.linalg.vector_norm(r) / bnorm > tol):
         Ap = matvec(p)
         alpha = rz / torch.clamp(torch.sum(p * Ap), min=1e-30)
         x = x + alpha * p
