@@ -84,7 +84,7 @@ Phases (each raises on failure; the exit code is then non-zero):
 6. mapper_resume -- stage 6's result (100 frames, one PINHOLE camera,
               ~2,500 points, ~224k observations) is written as a binary
               COLMAP model with write_reconstruction and read back with
-              read_model, which must give scene_to_model's dicts exactly.
+              read_model, which must give scene_to_model's model exactly.
               Then `cli.main(["mapper_resume", ...])` runs on the card as
               a user runs it (stages 5 and 6 from the model's rotations,
               the deregistration and, with --skip_pruning 0, stage 8):
@@ -1639,7 +1639,8 @@ def mapper_resume_phase(scene, tracks, gt_centers, dev, card):
     t0 = time.perf_counter()
     model_in = read_model(written[0])
     read_s = time.perf_counter() - t0
-    if not same_model(model_in, scene_to_model(scene, tracks)):
+    cameras, images, points = scene_to_model(scene, tracks)
+    if not same_model(model_in, (cameras, images, points.to_dict())):
         raise AssertionError("mapper_resume: the model read back differs "
                              "from scene_to_model's")
     ckpt = root / "checkpoints"

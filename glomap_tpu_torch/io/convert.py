@@ -307,11 +307,14 @@ def _ingest_rigs_and_frames(scene, db, cam_idx, img_idx, n_img):
 
 
 def scene_to_model(scene: Scene, tracks: Tracks, cluster: int = -1):
-    """(Scene, Tracks) -> (cameras, images, points) model dicts.
+    """(Scene, Tracks) -> (cameras, images, points): cameras and images as
+    model dicts, points as a colmap_model.Points table.
 
     Counterpart of ConvertGlomapToColmap (colmap_converter.cc:22-131):
     registered frames only (optionally one cluster), 2D-3D links rebuilt
-    from valid observations.
+    from valid observations. The points are the valid tracks with at
+    least 2 valid observations in those frames, under ids t + 1, with
+    error 0.
     """
     cameras = {}
     for k in range(scene.num_cameras):
@@ -343,26 +346,31 @@ def scene_to_model(scene: Scene, tracks: Tracks, cluster: int = -1):
         images[int(scene.image_ids[k])] = (
             q_img[k], t_img[k], int(scene.camera_ids[scene.image_camera[k]]),
             scene.image_names[k], scene.kp_xy[sl], kp_p3d[sl])
+    return cameras, images, _model_points(scene, tracks, img_reg)
 
-    points = {}
-    if tracks is not None and tracks.num_obs:
-        ok = tracks.obs_valid & tracks.valid[tracks.obs_track] & \
-            img_reg[tracks.obs_image]
-        order = np.argsort(tracks.obs_track[ok], kind="stable")
-        ot = tracks.obs_track[ok][order]
-        oi = tracks.obs_image[ok][order]
-        of = tracks.obs_feature[ok][order]
-        starts = np.searchsorted(ot, np.arange(tracks.num_tracks + 1))
-        for t in range(tracks.num_tracks):
-            lo, hi = starts[t], starts[t + 1]
-            if not tracks.valid[t] or hi - lo < 2:
-                continue
-            track_list = [(int(scene.image_ids[oi[j]]), int(of[j]))
-                          for j in range(lo, hi)]
-            color = tracks.color[t] if len(tracks.color) else \
-                np.zeros(3, np.uint8)
-            points[t + 1] = (tracks.xyz[t], color, 0.0, track_list)
-    return cameras, images, points
+
+def _model_points(scene: Scene, tracks: Tracks,
+                  img_reg: np.ndarray) -> colmap_model.Points:
+    """The points of scene_to_model: each track's observations in
+    registered images, in their order in the observation arrays."""
+    if tracks is None or not tracks.num_obs:
+        return colmap_model.Points.from_dict({})
+    ok = tracks.obs_valid & tracks.valid[tracks.obs_track] & \
+        img_reg[tracks.obs_image]
+    order = np.flatnonzero(ok)[np.argsort(tracks.obs_track[ok],
+                                          kind="stable")]
+    n = np.bincount(tracks.obs_track[order], minlength=tracks.num_tracks)
+    keep = tracks.valid & (n >= 2)
+    order = order[keep[tracks.obs_track[order]]]
+    n = n[keep]
+    color = tracks.color[keep] if len(tracks.color) else \
+        np.zeros((len(n), 3), np.uint8)
+    return colmap_model.Points(
+        ids=np.flatnonzero(keep).astype(np.int64) + 1,
+        xyz=tracks.xyz[keep], rgb=color, error=np.zeros(len(n)),
+        track_offset=np.concatenate([[0], np.cumsum(n)]).astype(np.int64),
+        track=np.stack([scene.image_ids[tracks.obs_image[order]],
+                        tracks.obs_feature[order]], axis=1).astype(np.int32))
 
 
 def write_reconstruction(path: str, scene: Scene, tracks: Tracks,
@@ -378,7 +386,8 @@ def write_reconstruction(path: str, scene: Scene, tracks: Tracks,
         with span("write model/model"):
             cameras, images, points = scene_to_model(scene, tracks)
         with span("write model/files"):
-            colmap_model.write_model(out, cameras, images, points, binary)
+            colmap_model.write_model_table(out, cameras, images, points,
+                                            binary)
         return [out]
     outs = []
     for c in clusters:
@@ -387,7 +396,8 @@ def write_reconstruction(path: str, scene: Scene, tracks: Tracks,
             cameras, images, points = scene_to_model(scene, tracks,
                                                      cluster=int(c))
         with span("write model/files"):
-            colmap_model.write_model(out, cameras, images, points, binary)
+            colmap_model.write_model_table(out, cameras, images, points,
+                                            binary)
         outs.append(out)
     return outs
 
@@ -398,14 +408,17 @@ def model_to_scene(path: str):
     the files in a "read model/files" span, the conversion in a "read
     model/scene" span."""
     with span("read model/files"):
-        cameras, images, points = colmap_model.read_model(path)
+        cameras, images, points = colmap_model.read_model_table(path)
     with span("read model/scene"):
         return _scene_of_model(cameras, images, points)
 
 
-def _scene_of_model(cameras: dict, images: dict, points: dict):
+def _scene_of_model(cameras: dict, images: dict,
+                    points: colmap_model.Points):
     """(Scene, Tracks) of a model's cameras, images and points, as
-    colmap_model.read_model returns them."""
+    colmap_model.read_model_table returns them: the tracks by ascending
+    point id, each in its file order, without the entries of images the
+    model lacks."""
     scene = Scene()
     cam_ids = sorted(cameras)
     n_cam = len(cam_ids)
@@ -432,7 +445,6 @@ def _scene_of_model(cameras: dict, images: dict, points: dict):
     scene.image_names = [images[i][3] for i in img_ids]
     scene.image_camera = np.asarray([cam_idx[images[i][2]] for i in img_ids],
                                     dtype=np.int32)
-    img_idx = {iid: k for k, iid in enumerate(img_ids)}
 
     # trivial rigs/frames, each frame at its image's pose
     _trivial_rigs(scene, n_img)
@@ -451,23 +463,18 @@ def _scene_of_model(cameras: dict, images: dict, points: dict):
     scene.kp_ray = np.zeros((len(scene.kp_xy), 3))
 
     # tracks
-    pids = sorted(points)
-    pid_to_idx = {p: k for k, p in enumerate(pids)}
-    xyz = np.zeros((len(pids), 3))
-    color = np.zeros((len(pids), 3), dtype=np.uint8)
-    ot, oi, of = [], [], []
-    for p in pids:
-        xyz[pid_to_idx[p]] = points[p][0]
-        color[pid_to_idx[p]] = points[p][1]
-        for img_id, p2d in points[p][3]:
-            if img_id in img_idx:
-                ot.append(pid_to_idx[p])
-                oi.append(img_idx[img_id])
-                of.append(p2d)
+    n_pts = len(points.ids)
+    obs_track = np.repeat(np.arange(n_pts, dtype=np.int32),
+                          np.diff(points.track_offset))
+    track_img = points.track[:, 0]
+    k = np.searchsorted(scene.image_ids, track_img)
+    found = k < n_img
+    found[found] = scene.image_ids[k[found]] == track_img[found]
     tracks = Tracks(
-        xyz=xyz, valid=np.ones(len(pids), dtype=bool), color=color,
-        obs_track=np.asarray(ot, dtype=np.int32),
-        obs_image=np.asarray(oi, dtype=np.int32),
-        obs_feature=np.asarray(of, dtype=np.int32),
-        obs_valid=np.ones(len(ot), dtype=bool))
+        xyz=points.xyz.astype(np.float64), valid=np.ones(n_pts, dtype=bool),
+        color=points.rgb.astype(np.uint8),
+        obs_track=obs_track[found],
+        obs_image=k[found].astype(np.int32),
+        obs_feature=points.track[found, 1].astype(np.int32),
+        obs_valid=np.ones(int(found.sum()), dtype=bool))
     return scene, tracks

@@ -7,11 +7,16 @@ both on the CPU.
   model_to_scene give the JAX package's arrays and files exactly, on a
   12-frame generator scene with unregistered frames, invalid tracks and
   invalid observations.
+* the columnar path (colmap_model.Points): on a 3,000-point model written
+  in shuffled id order, with a duplicated id, one-entry and empty tracks
+  and entries naming images the model lacks, the dicts, the Scene and
+  Tracks arrays and the written files equal the JAX package's.
 * checkpoint: a stage_NN.npz written by either package loads into the
   other field for field.
 """
 
 import dataclasses
+import struct
 from pathlib import Path
 
 import numpy as np
@@ -109,10 +114,10 @@ def clustered():
 @pytest.mark.parametrize("cluster", [-1, 0, 1])
 def test_scene_to_model_matches_jax(clustered, cluster):
     scene, tracks = clustered
-    _assert_same_model(
-        tcv.scene_to_model(scene_from_jax(scene), tracks_from_jax(tracks),
-                           cluster=cluster),
-        jcv.scene_to_model(scene, tracks, cluster=cluster))
+    cameras, images, points = tcv.scene_to_model(
+        scene_from_jax(scene), tracks_from_jax(tracks), cluster=cluster)
+    _assert_same_model((cameras, images, points.to_dict()),
+                       jcv.scene_to_model(scene, tracks, cluster=cluster))
 
 
 def test_write_reconstruction_and_model_to_scene_match_jax(clustered,
@@ -148,6 +153,87 @@ def _assert_same_fields(a, b):
         else:
             np.testing.assert_array_equal(x, y, err_msg=f.name)
             assert np.asarray(x).dtype == np.asarray(y).dtype, f.name
+
+
+def _shuffled_model(path, binary):
+    """A model of 3,000 points whose points file lists them in shuffled
+    id order, one id twice (a reader keeps the later); tracks of up to
+    six entries, one of one entry, one empty, and entries naming images
+    the model lacks (7 and 40)."""
+    rng = np.random.default_rng(19)
+    cameras = {1: (1, 640, 480, np.asarray([500.0, 510.0, 320.0, 240.0])),
+               2: (2, 800, 600, np.asarray([700.0, 400.0, 300.0, 0.01]))}
+    image_ids = [i for i in range(1, 13) if i != 7]
+    images = {}
+    for iid in image_ids:
+        q = rng.standard_normal(4)
+        images[iid] = (q / np.linalg.norm(q), rng.standard_normal(3),
+                       1 + iid % 2, f"img_{iid:03d}.jpg",
+                       rng.uniform(0, 640, (300, 2)),
+                       rng.integers(-1, 3000, 300).astype(np.int64))
+    ids = rng.choice(10**6, 3000, replace=False) + 1
+    records = []
+    for k, pid in enumerate(ids):
+        n = 1 if k == 5 else 0 if k == 9 else int(rng.integers(2, 7))
+        track = [(int(rng.choice([*image_ids, 7, 40])),
+                  int(rng.integers(0, 300))) for _ in range(n)]
+        records.append((int(pid), rng.standard_normal(3),
+                        rng.integers(0, 256, 3).astype(np.uint8),
+                        float(rng.uniform()), track))
+    records.append((int(ids[17]), *records[-1][1:]))
+    jcm.write_model(str(path), cameras, images, {}, binary=binary)
+    if binary:
+        with open(path / "points3D.bin", "wb") as f:
+            f.write(struct.pack("<Q", len(records)))
+            for pid, xyz, rgb, error, track in records:
+                f.write(struct.pack("<q", pid) + xyz.tobytes() +
+                        rgb.tobytes() + struct.pack("<dQ", error, len(track)))
+                f.write(np.asarray(track, "<i4").tobytes())
+    else:
+        with open(path / "points3D.txt", "w") as f:
+            for pid, xyz, rgb, error, track in records:
+                f.write(" ".join(map(str, [pid, *xyz, *rgb, error,
+                                           *(x for e in track for x in e)]))
+                        + "\n")
+    return str(path)
+
+
+@pytest.mark.parametrize("binary", [True, False], ids=["bin", "txt"])
+def test_columnar_model_io_matches_jax(tmp_path, binary):
+    """The columnar reader, conversions and writers against the JAX
+    package's dict-based ones on one model: the same dicts, the same
+    Scene and Tracks arrays, the same files from write_model and from
+    write_reconstruction of two clusters."""
+    model = _shuffled_model(tmp_path / "model", binary)
+    dicts = jcm.read_model(model)
+    assert len(dicts[2]) == 3000
+    _assert_same_model(tcm.read_model(model), dicts)
+    table = tcm.read_model_table(model)[2]
+    assert (np.diff(table.ids) > 0).all()
+    assert {0, 1} <= set(np.diff(table.track_offset).tolist())
+    jcm.write_model(str(tmp_path / "jax_dicts"), *dicts, binary=binary)
+    tcm.write_model(str(tmp_path / "torch_dicts"), *dicts, binary=binary)
+    assert _files(tmp_path / "jax_dicts") == _files(tmp_path / "torch_dicts")
+
+    scene, tracks = jcv.model_to_scene(model)
+    t_scene, t_tracks = tcv.model_to_scene(model)
+    _assert_same_fields(t_scene, scene)
+    _assert_same_fields(t_tracks, tracks)
+    assert t_tracks.num_obs < len(table.track)  # images 7 and 40 dropped
+
+    scene.frame_cluster[:] = np.arange(scene.num_frames) % 2
+    scene.frame_registered[4] = False
+    tracks.valid[::7] = False
+    tracks.obs_valid[::11] = False
+    jdirs = jcv.write_reconstruction(str(tmp_path / "jax"), scene, tracks,
+                                     binary=binary)
+    tdirs = tcv.write_reconstruction(str(tmp_path / "torch"),
+                                     scene_from_jax(scene),
+                                     tracks_from_jax(tracks), binary=binary)
+    assert [Path(d).name for d in tdirs] == [Path(d).name for d in jdirs] \
+        == ["0", "1"]
+    for jd, td in zip(jdirs, tdirs):
+        assert _files(jd) == _files(td)
 
 
 @pytest.mark.parametrize("writer", ["jax", "torch"])

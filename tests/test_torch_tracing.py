@@ -7,7 +7,7 @@
 * (a) The span tree of a small `mapper_resume` under recording(): the
   command's root, its stages and every named child, each child inside
   its parent's interval, unique ids, and the LM loops' counts against the
-  controller's reports.
+  controller's reports; the model IO's track entries and file bytes.
 * (b) The same run with recording off stores no span, never synchronizes,
   and logs its stages in the form the benchmark parses
   (sfm_bench/trace.py:StageLog).
@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import json
 import logging
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -29,6 +30,7 @@ import torch
 
 from glomap_tpu_torch import cli
 from glomap_tpu_torch.controllers.global_mapper import GlobalMapper
+from glomap_tpu_torch.io.colmap_model import read_model
 from glomap_tpu_torch.io.convert import write_reconstruction
 from glomap_tpu_torch.io.database import write_database
 from glomap_tpu_torch.scene.arrays import Tracks
@@ -104,11 +106,17 @@ def _run(argv, out):
 
 
 @pytest.fixture(scope="module")
-def traced(model_dir, tmp_path_factory):
+def traced_out(tmp_path_factory):
+    """The output path of the traced mapper_resume."""
+    return tmp_path_factory.mktemp("out")
+
+
+@pytest.fixture(scope="module")
+def traced(model_dir, traced_out):
     """(records, mapper) of one mapper_resume under recording()."""
     with profiling.recording() as records:
         rc, mapper = _run(["mapper_resume", "--input_path", model_dir],
-                          tmp_path_factory.mktemp("out"))
+                          traced_out)
     assert rc == 0
     return records, mapper
 
@@ -254,6 +262,22 @@ def test_mapper_resume_span_tree(traced):
     # the solves' spans are children of the stage they ran in
     ba_stage = _named(records, "bundle adjustment")[0]
     assert all(r.parent == ba_stage.id for r in _named(records, "ba/solve"))
+
+
+@pytest.mark.parametrize("name", ["read model/files", "write model/files"])
+def test_model_io_counts_track_entries_and_bytes(traced, traced_out,
+                                                 model_dir, name):
+    """The model's files spans count the track entries (`obs`) and the
+    bytes of the three files they read or wrote."""
+    path = Path(model_dir if name.startswith("read") else traced_out / "0")
+    _, _, points = read_model(str(path))
+    (files,) = _named(traced[0], name)
+    assert files.counts == {
+        "obs": sum(len(p[3]) for p in points.values()),
+        "bytes": sum(f.stat().st_size for f in path.iterdir())}
+    assert files.counts["obs"] > 0
+    assert sorted(f.name for f in path.iterdir()) == [
+        "cameras.bin", "images.bin", "points3D.bin"]
 
 
 # ----------------------------------------------------------------------------
