@@ -65,7 +65,7 @@ from glomap_tpu_torch.processors.pruning import prune_weakly_connected_images
 from glomap_tpu_torch.processors.undistortion import undistort_images
 from glomap_tpu_torch.scene.arrays import Scene, Tracks
 from glomap_tpu_torch.scene.view_graph import ViewGraph
-from glomap_tpu_torch.utils.profiling import StageTimer, span
+from glomap_tpu_torch.utils.profiling import StageTimer, count, span
 
 logger = logging.getLogger(__name__)
 
@@ -319,6 +319,8 @@ class GlobalMapper:
         self.reports["track establishment"] = {
             "tracks_full": full.num_tracks, "tracks": tracks.num_tracks,
             "observations": tracks.num_obs}
+        count("tracks", tracks.num_tracks)
+        count("observations", tracks.num_obs)
         return tracks
 
     @_stage("global positioning")
@@ -454,6 +456,7 @@ class GlobalMapper:
                 tracks = retriangulate_tracks(scene, vg, tracks, tri,
                                               device=dev, dtype=self.dtype,
                                               stats=retri)
+                count("tracks", tracks.num_tracks)
             retri["seconds"] = sp.seconds
             rounds, prev_keys = [], None
             for _ in range(RETRIANGULATION_ROUNDS):

@@ -26,6 +26,9 @@ a (I - h h^T) * gather(v), with the (9, O) stack of the per-observation
 mechanism is gone: point_width/axis_window, bucket padding, lam0 and the
 host-segmented LM calls and the exact= flags. One host read per LM
 iteration (the exit test) plus one per CG iteration, as in the port's BA.
+Beyond the JAX package: after a solve that stops at its cap unconverged,
+the frames it left behind are placed by resection from the solved points
+(place_left_behind_frames; ROADMAP C.13).
 With num_parts, solve_global_positioning runs the same flow (the anneal,
 the scale grid, the unknown-rig alternation) with every _solve_gp split
 across the parts of a process group (parallel/partitioned_gp.py, the JAX
@@ -40,7 +43,7 @@ import logging
 import numpy as np
 import torch
 
-from glomap_tpu_torch.config import GlobalPositionerOptions
+from glomap_tpu_torch.config import GlobalPositionerOptions, InlierThresholds
 from glomap_tpu_torch.device import resolve_device
 from glomap_tpu_torch.math import rotation as rotm
 from glomap_tpu_torch.ops import kernels
@@ -51,6 +54,13 @@ from glomap_tpu_torch.scene.view_graph import CONFIG_PANORAMIC, ViewGraph
 from glomap_tpu_torch.utils import profiling
 
 logger = logging.getLogger(__name__)
+
+# After a solve that stops at its iteration cap unconverged, a frame most
+# of whose observations point further than this from their points is one
+# the LM left behind (the controller's angle filter, at its default
+# InlierThresholds.max_angle_error, would strip it of them): it is placed
+# by resection from the points (place_left_behind_frames).
+LEFT_BEHIND_DEG = InlierThresholds.max_angle_error
 
 
 def _t(a):
@@ -305,7 +315,10 @@ def solve_global_positioning(scene: Scene, vg: ViewGraph, tracks: Tracks,
     Runs on CUDA unless `device` says otherwise (device=None without CUDA
     raises), in `dtype`: f32 on the card, whose kernels take f32. A
     `stats` dict, if given, receives the number of _solve_gp calls and
-    their LM and CG iterations ("solves", "lm_iters", "cg_iters").
+    their LM and CG iterations ("solves", "lm_iters", "cg_iters"), whether
+    the last one converged before its cap ("converged") and, where it did
+    not, the frames it left behind that were placed by resection
+    ("placed_frames", place_left_behind_frames).
 
     With num_parts, every _solve_gp is split into that many parts over the
     ranks of process_group (the default group; one rank holding every
@@ -316,7 +329,8 @@ def solve_global_positioning(scene: Scene, vg: ViewGraph, tracks: Tracks,
 
     Its spans (utils/profiling.py): "gp/prep", the constraints on the
     host and their upload; each _solve_gp's; "gp/download", the results'
-    copies to the host and their write-back."""
+    copies to the host, the placement of frames left behind and the
+    write-back."""
     device = resolve_device(device)
     opts = opts or GlobalPositionerOptions()
     prep = profiling.span("gp/prep").start()
@@ -439,10 +453,11 @@ def solve_global_positioning(scene: Scene, vg: ViewGraph, tracks: Tracks,
     stats.update(solves=0, lm_iters=0, cg_iters=0)
 
     def solve(c, X, u, huber_delta=hub):
-        c, X, cost, it, _, _, cg = run(c, X, u, huber_delta)
+        c, X, cost, it, _, done, cg = run(c, X, u, huber_delta)
         stats["solves"] += 1
         stats["lm_iters"] += it
         stats["cg_iters"] += cg
+        stats["converged"] = bool(done)
         return c, X, cost, it
 
     has_rig_offsets = bool(np.any(np.abs(u_rig) > 0))
@@ -507,6 +522,10 @@ def solve_global_positioning(scene: Scene, vg: ViewGraph, tracks: Tracks,
                     stats["cg_iters"])
         if not (np.all(np.isfinite(c)) and np.all(np.isfinite(X))):
             return False
+        if not stats["converged"] and n_obs and opts.optimize_positions:
+            stats["placed_frames"] = place_left_behind_frames(
+                c, X, o_frame, o_point, t_obs,
+                uT.T.to("cpu", torch.float64).numpy())
 
         # ConvertResults: t = -R c (global_positioning.cc:562-585)
         if opts.optimize_positions:
@@ -517,6 +536,87 @@ def solve_global_positioning(scene: Scene, vg: ViewGraph, tracks: Tracks,
                 # tracks below min views kept their random init: invalidate
                 tracks.valid &= track_ok
     return True
+
+
+def _ray_point(a, u, delta: float, scale: float, c=None, iters: int = 20):
+    """The point c closest to the lines through a (k, 3) along unit u
+    (k, 3) under a Huber loss of width delta on the perpendicular
+    distances |P_k (c - a_k)|, P_k = I - u_k u_k^T, by IRLS until a step
+    under 1e-9 scale: from the plain least squares (the mean of a with
+    unit weights), or from c with its Huber weights. A convex problem:
+    the IRLS reaches its minimum from any start. Returns (c, the final
+    perpendicular distances)."""
+    eye = np.eye(3)
+    P = eye[None] - u[:, :, None] * u[:, None, :]
+
+    def weights(c):
+        r = np.linalg.norm(np.einsum("kij,kj->ki", P, c - a), axis=-1)
+        return r, np.where(r <= delta, 1.0, delta / np.maximum(r, 1e-12))
+
+    if c is None:
+        c, w = a.mean(0), np.ones(len(a))
+    else:
+        _, w = weights(c)
+    for _ in range(iters):
+        A = np.einsum("k,kij->ij", w, P) + 1e-9 * eye
+        b = np.einsum("k,kij,kj->i", w, P, a)
+        c_new = np.linalg.solve(A, b)
+        r, w = weights(c_new)
+        if np.linalg.norm(c_new - c) < 1e-9 * scale:
+            return c_new, r
+        c = c_new
+    return c, r
+
+
+def place_left_behind_frames(c, X, o_frame, o_point, t_obs,
+                             u_rig) -> int:
+    """Place the frames an unconverged solve left behind, in place in c
+    (num_frames, 3) f64; returns their number.
+
+    From a random start the LM can end its iterations with a frame still
+    far from the points that the other frames placed: there its
+    residuals' scales are tiny, so are its Jacobian blocks, and the angle
+    filter then strips it of its observations. Such a frame, most of
+    whose observations point more than LEFT_BEHIND_DEG from their
+    points, is resected from those points: its center is the point
+    closest to the lines X + u - lambda t of its observations, under a
+    Huber loss of the width that the angle threshold gives at the median
+    depth (two passes, the depth taken again at the first's center). The
+    placement is kept where more of its observations then point at their
+    points within the threshold than before. Host numpy."""
+    n_f = len(c)
+    t = t_obs / np.maximum(np.linalg.norm(t_obs, axis=-1, keepdims=True),
+                           1e-12)
+    sin_max = np.sin(np.deg2rad(LEFT_BEHIND_DEG))
+    cos_max = np.cos(np.deg2rad(LEFT_BEHIND_DEG))
+
+    def aligned(a, center, tk):
+        d = a - center
+        return np.sum(tk * d, -1) > cos_max * np.linalg.norm(d, axis=-1)
+
+    a_all = X[o_point] + u_rig
+    off = ~aligned(a_all, c[o_frame], t)
+    share = np.bincount(o_frame, weights=off, minlength=n_f) / np.maximum(
+        np.bincount(o_frame, minlength=n_f), 1)
+    placed = 0
+    for f in np.nonzero(share > 0.5)[0]:
+        sel = o_frame == f
+        a, tk = a_all[sel], t[sel]
+        center, _ = _ray_point(a, tk, np.inf, 1.0, iters=1)
+        for _ in range(2):
+            depth = float(np.median(np.linalg.norm(a - center, axis=-1)))
+            center, _ = _ray_point(a, tk, depth * sin_max, depth, c=center,
+                                   iters=100)
+        kept = aligned(a, center, tk).mean()
+        if kept <= 1.0 - share[f]:
+            continue
+        logger.info("Placed frame %d, left behind by the solve, by "
+                    "resection: %.0f%% of its %d observations within %g "
+                    "deg, %.0f%% before", int(f), 100 * kept,
+                    int(sel.sum()), LEFT_BEHIND_DEG, 100 * (1 - share[f]))
+        c[f] = center
+        placed += 1
+    return placed
 
 
 def rescue_unplaced_frames(scene: Scene, vg: ViewGraph, tracks: Tracks,
@@ -570,23 +670,9 @@ def rescue_unplaced_frames(scene: Scene, vg: ViewGraph, tracks: Tracks,
         u = np.where(f_is_j[:, None], 1.0, -1.0)[ok] * (t_w / nrm)[ok]
         a = centers[img_frame[nb_im[ok]]]
         # Huber-IRLS point-to-ray least squares
-        c = a.mean(0)
-        scale = np.median(np.linalg.norm(a - c, axis=-1)) + 1e-9
+        scale = np.median(np.linalg.norm(a - a.mean(0), axis=-1)) + 1e-9
         delta = 0.1 * scale
-        w = np.ones(len(a))
-        eye = np.eye(3)
-        for _ in range(20):
-            P = eye[None] - u[:, :, None] * u[:, None, :]
-            A = np.einsum("k,kij->ij", w, P) + 1e-9 * eye
-            b = np.einsum("k,kij,kj->i", w, P, a)
-            c_new = np.linalg.solve(A, b)
-            r = np.linalg.norm(np.einsum("kij,kj->ki", P, c_new - a),
-                               axis=-1)
-            w = np.where(r <= delta, 1.0, delta / np.maximum(r, 1e-12))
-            if np.linalg.norm(c_new - c) < 1e-9 * scale:
-                c = c_new
-                break
-            c = c_new
+        c, r = _ray_point(a, u, delta, scale)
         # a majority of rays must agree with the solution
         if (r > 3 * delta).mean() > max_outlier_frac:
             continue

@@ -25,6 +25,10 @@ Divergences by design (ROADMAP C.10):
     ineligible pairs (invalid, or fewer than 8 matches) spend nothing;
   * the hypotheses are scored by batched matrix products (C = E . (b x a),
     E a and E^T b) in blocks of hypotheses sized by memory.
+
+The "frontend/ransac" span counts the pair-hypotheses scored
+(`hypotheses`, summed over the pairs), the chunks and the host reads of
+the best counts after each chunk (`host_reads`).
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ from glomap_tpu_torch.ops import smallalg as sa
 from glomap_tpu_torch.processors.undistortion import device_keypoints
 from glomap_tpu_torch.scene.arrays import Scene
 from glomap_tpu_torch.scene.view_graph import ViewGraph
-from glomap_tpu_torch.utils.profiling import span
+from glomap_tpu_torch.utils.profiling import count, span
 
 logger = logging.getLogger(__name__)
 
@@ -449,7 +453,10 @@ def estimate_relative_poses(scene: Scene, vg: ViewGraph,
         n_chunks += 1
         target = _stopping_number(best_cnt.cpu().numpy(), slots, min_hyp,
                                   max_hyp)
+        count("host_reads")
         active = np.nonzero(eligible & (done < target))[0]
+    count("hypotheses", int(done.sum()))
+    count("chunks", n_chunks)
     ransac.stop()
     with span("frontend/choose") as choose:
         q, t = _choose_pose_tab(best_E, tab, mask)

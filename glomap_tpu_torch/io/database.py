@@ -18,6 +18,7 @@ into flat numpy arrays. The COLMAP database schema is the public contract:
 
 from __future__ import annotations
 
+import os
 import sqlite3
 from dataclasses import dataclass, field
 
@@ -26,6 +27,7 @@ import torch
 
 from glomap_tpu_torch.math import rotation as rotm
 from glomap_tpu_torch.ops import camera_models as cm
+from glomap_tpu_torch.utils.profiling import count
 
 MAX_IMAGE_ID = 2147483647
 
@@ -78,11 +80,18 @@ class DatabaseData:
 
 
 def read_database(path: str) -> DatabaseData:
+    """The database's tables as arrays; counts the two-view geometries
+    read (`pairs`), their match rows (`matches`) and the file's `bytes`
+    on the innermost open span."""
     db = sqlite3.connect(f"file:{path}?mode=ro", uri=True)
     try:
-        return _read(db)
+        out = _read(db)
     finally:
         db.close()
+    count("pairs", len(out.tvg_matches))
+    count("matches", sum(len(m) for m in out.tvg_matches))
+    count("bytes", os.path.getsize(path))
+    return out
 
 
 def _table_exists(db, name):

@@ -48,6 +48,7 @@ from glomap_tpu_torch.scene.arrays import Scene
 from glomap_tpu_torch.scene.view_graph import (
     ViewGraph, CONFIG_CALIBRATED, CONFIG_UNCALIBRATED, CONFIG_PLANAR,
     CONFIG_PANORAMIC, CONFIG_PLANAR_OR_PANORAMIC)
+from glomap_tpu_torch.utils.profiling import count
 
 # most matches per sweep call
 _SWEEP_CHUNK_MATCHES = 12 << 20
@@ -189,7 +190,8 @@ def image_pairs_inlier_count(scene: Scene, vg: ViewGraph,
                              opts: InlierThresholds | None = None,
                              device=None, dtype: torch.dtype = torch.float32):
     """Classify every match; sets vg.match_inlier (bool) and
-    vg.pair_num_inliers (int64), and returns the per-pair score (f64).
+    vg.pair_num_inliers (int64), counts them as `matches` on the innermost
+    open span, and returns the per-pair score (f64).
 
     Needs scene.kp_ray (processors.undistortion.undistort_images) for
     CALIBRATED pairs. Runs on the card unless `device` says otherwise;
@@ -229,6 +231,7 @@ def image_pairs_inlier_count(scene: Scene, vg: ViewGraph,
         score[p0:p1] = s.cpu().double().numpy()
     vg.match_inlier = inlier
     vg.pair_num_inliers = n_inl
+    count("matches", vg.num_matches)
     logging.getLogger(__name__).debug(
         "inlier sweep: %d matches in %d chunk(s), %.3fs", vg.num_matches,
         len(bounds) - 1, time.monotonic() - t0)

@@ -244,3 +244,51 @@ def test_rescue_and_deregistration_match_jax():
     assert tgp.deregister_unsupported_frames(empty, Tracks()) == \
         int(t_scene.frame_registered.sum())
     assert not empty.frame_registered.any()
+
+
+def _obs_arrays(scene, tracks):
+    """(o_frame, o_point, t_obs) of the valid observations of valid
+    tracks, as solve_global_positioning builds them for trivial rigs."""
+    ok = tracks.obs_valid & tracks.valid[tracks.obs_track]
+    o_img = tracks.obs_image[ok]
+    kp = scene.kp_offset[o_img] + tracks.obs_feature[ok]
+    q_img, _ = scene.image_cam_from_world()
+    t_obs = tgp._np_rotate(tgp._np_conj(q_img[o_img]), scene.kp_ray[kp])
+    return scene.image_frame[o_img], tracks.obs_track[ok], t_obs
+
+
+def test_left_behind_frame_is_placed_by_resection():
+    """A solve that leaves no frame behind places none. A frame left far
+    from its points (here moved 300 extents back along its viewing axis
+    from its solved center: its points all in front, most of its
+    observations off by more than LEFT_BEHIND_DEG) is placed by
+    resection from the solved points, near its solved center; the frames
+    in place stay as they are, bit for bit."""
+    scene, vg, tracks, _ = _prepare(num_frames_per_rig=15, num_points3D=300,
+                                    seed=14, point2D_stddev=1.0)
+    t_scene, t_vg, t_tracks = _carry(scene, vg, tracks)
+    stats = {}
+    assert tgp.solve_global_positioning(
+        t_scene, t_vg, t_tracks, GlobalPositionerOptions(),
+        dtype=torch.float64, device="cpu", stats=stats)
+    assert stats.get("placed_frames", 0) == 0
+
+    o_frame, o_point, t_obs = _obs_arrays(t_scene, t_tracks)
+    u = np.zeros_like(t_obs)
+    solved = t_scene.frame_centers()
+    extent = np.linalg.norm(solved.max(0) - solved.min(0))
+    c = solved.copy()
+    assert tgp.place_left_behind_frames(c, t_tracks.xyz, o_frame, o_point,
+                                        t_obs, u) == 0
+    np.testing.assert_array_equal(c, solved)
+
+    f = 7
+    axis = t_obs[o_frame == f].mean(0)
+    c[f] = solved[f] - 300.0 * extent * axis / np.linalg.norm(axis)
+    assert tgp.place_left_behind_frames(c, t_tracks.xyz, o_frame, o_point,
+                                        t_obs, u) == 1
+    # from the solved points the resection lands within 1.4e-4 of the
+    # extent of the solved center, whichever of the 15 frames is moved
+    assert np.linalg.norm(c[f] - solved[f]) < 1e-3 * extent
+    keep = np.arange(len(c)) != f
+    np.testing.assert_array_equal(c[keep], solved[keep])
