@@ -12,8 +12,9 @@ reference's glomap/processors/view_graph_manipulation.{h,cc}:
     cheirality and Sampson consistency; pure rotations become PANORAMIC.
   SparsifyGraph / EstablishStrongClusters (:10-177) -- random edge
     subsampling to a target degree, and union-find strong clustering.
-The host preparation (numpy default_rng draws, the lexsort of the
-matches) is the JAX package's, step for step.
+The decomposition's tables hold the JAX package's matches bit for bit
+(its default_rng(0) keys and its order), sorted and gathered on the
+port's device.
 """
 
 from __future__ import annotations
@@ -32,11 +33,13 @@ from glomap_tpu_torch.estimators.relpose import (_cheirality_tab,
 from glomap_tpu_torch.math import rotation as rotm
 from glomap_tpu_torch.math import two_view as tv
 from glomap_tpu_torch.math.homography import decompose_homography
-from glomap_tpu_torch.processors.undistortion import undistort_images
+from glomap_tpu_torch.processors.undistortion import (device_keypoints,
+                                                      undistort_images)
 from glomap_tpu_torch.scene.arrays import Scene
 from glomap_tpu_torch.scene.view_graph import (
     CONFIG_CALIBRATED, CONFIG_PANORAMIC, CONFIG_PLANAR,
     CONFIG_PLANAR_OR_PANORAMIC, CONFIG_UNCALIBRATED, ViewGraph)
+from glomap_tpu_torch.utils.profiling import count, span
 
 logger = logging.getLogger(__name__)
 
@@ -81,31 +84,47 @@ def update_image_pairs_config(scene: Scene, vg: ViewGraph) -> int:
     return len(idx)
 
 
-def _decompose_tables(scene: Scene, vg: ViewGraph, use: np.ndarray):
-    """(6 x (P, cap) f64 ray components, mask (P, cap)): each pair's first
-    DECOMPOSE_CAP matches in a random order (default_rng(0) keys, lexsort
-    by pair); the mask keeps the inlier matches of the pairs in `use`. A
-    padded slot's z is 1."""
-    P, cap = vg.num_pairs, DECOMPOSE_CAP
-    rng_np = np.random.default_rng(0)
-    keys = rng_np.random(vg.num_matches)
-    order = np.lexsort((keys, vg.match_pair))
-    ranks = np.empty(vg.num_matches, dtype=np.int64)
-    ranks[order] = np.arange(vg.num_matches) - \
-        vg.pair_match_offset[vg.match_pair[order]]
-    sel = ranks < cap
-    mp_s = vg.match_pair[sel]
-    rank_s = ranks[sel]
-    kp1 = scene.kp_offset[vg.pair_i[mp_s]] + vg.match_f1[sel]
-    kp2 = scene.kp_offset[vg.pair_j[mp_s]] + vg.match_f2[sel]
-    tabs = np.zeros((6, P, cap))
-    tabs[0:3, mp_s, rank_s] = scene.kp_ray[kp1].T
-    tabs[3:6, mp_s, rank_s] = scene.kp_ray[kp2].T
-    mask = np.zeros((P, cap), dtype=bool)
-    mask[mp_s, rank_s] = use[mp_s] & vg.match_inlier[sel]
-    tabs[2][~mask] = 1.0
-    tabs[5][~mask] = 1.0
-    return tabs, mask
+def _decompose_tables(scene: Scene, vg: ViewGraph, use: np.ndarray, device,
+                      dtype: torch.dtype, cap: int):
+    """(6 x (P, cap) ray components in `dtype`, mask (P, cap)) on `device`:
+    each pair's first `cap` matches in a random order, as the JAX package
+    picks them. It orders the matches by pair, then by a default_rng(0)
+    key, then by index: here a stable sort of the keys, then a stable sort
+    of the pairs in that order. A match's slot is its position less its
+    pair's offset. The mask keeps the inlier matches of the pairs in
+    `use`; a slot outside it has z = 1. Counts the matches sorted and the
+    slots kept."""
+    P, M = vg.num_pairs, vg.num_matches
+
+    def put(a):
+        return torch.from_numpy(np.asarray(a)).to(device)
+
+    keys = put(np.random.default_rng(0).random(M))
+    by_key = torch.argsort(keys, stable=True)
+    del keys
+    pair, by_pair = torch.sort(put(vg.match_pair)[by_key], stable=True)
+    rank = torch.arange(M, device=device) - \
+        put(np.asarray(vg.pair_match_offset, np.int64))[pair]
+    keep = rank < cap
+    m = by_key[by_pair[keep]]
+    pair = pair[keep].long()
+    slot = pair * cap + rank[keep]
+    count("matches", M)
+    count("slots", m.numel())
+    mask = torch.zeros(P * cap, dtype=torch.bool, device=device)
+    mask[slot] = put(use)[pair] & put(vg.match_inlier)[m]
+    kp_rayT, _ = device_keypoints(scene, device, dtype)
+    kp_off = put(np.asarray(scene.kp_offset, np.int64))
+    tab = []
+    for f, img in ((vg.match_f1, vg.pair_i), (vg.match_f2, vg.pair_j)):
+        kp = kp_off[put(img)[pair]] + put(f)[m]
+        for k in range(3):
+            plane = torch.zeros(P * cap, dtype=dtype, device=device)
+            plane[slot] = kp_rayT[k][kp]
+            if k == 2:
+                plane.masked_fill_(~mask, 1.0)
+            tab.append(plane.view(P, cap))
+    return tuple(tab), mask.view(P, cap)
 
 
 def decompose_rel_pose(scene: Scene, vg: ViewGraph,
@@ -139,12 +158,9 @@ def decompose_rel_pose(scene: Scene, vg: ViewGraph,
     if not scene.kp_ray.any():
         undistort_images(scene, device=device)
 
-    t0 = time.perf_counter()
-    tabs, mask_np = _decompose_tables(scene, vg, use)
-    t1 = time.perf_counter()
-    tab = tuple(torch.from_numpy(tabs[k]).to(device, dtype)
-                for k in range(6))
-    mask = torch.from_numpy(mask_np).to(device)
+    with span("frontend/decompose_tables") as tables:
+        tab, mask = _decompose_tables(scene, vg, use, device, dtype,
+                                      DECOMPOSE_CAP)
     q, t = _choose_pose_tab(torch.from_numpy(vg.pair_E).to(device, dtype),
                             tab, mask)
     q = q.cpu().double().numpy()
@@ -197,8 +213,8 @@ def decompose_rel_pose(scene: Scene, vg: ViewGraph,
                 n_pure)
     if stats is not None:
         stats.update(pairs_e=int(use_e.sum()), pairs_h=int(use_h.sum()),
-                     pure_rotations=n_pure, tables_s=t1 - t0,
-                     seconds=time.perf_counter() - t0)
+                     pure_rotations=n_pure, tables_s=tables.seconds,
+                     seconds=time.perf_counter() - tables.t0)
     return n_pure
 
 

@@ -41,6 +41,7 @@ from glomap_tpu_torch.controllers import global_mapper as tgm
 from glomap_tpu_torch.estimators import view_graph_calibration as tvc
 from glomap_tpu_torch.io.checkpoint import load_checkpoint
 from glomap_tpu_torch.processors import view_graph_manipulation as tvgm
+from glomap_tpu_torch.utils import profiling
 from glomap_tpu_torch.utils.carry import scene_from_jax, view_graph_from_jax
 
 torch.set_num_threads(2)
@@ -297,6 +298,122 @@ def test_decompose_rel_pose_matches_jax():
     gt_q = np.stack([_gt_rel_pose(scene, gt, vg, p)[0] for p in e_pairs])
     assert _angles(t_vg.pair_quat[e_pairs], gt_q).max() < 1e-2
     np.testing.assert_allclose(t_vg.pair_trans[p_pure], 0.0, atol=1e-12)
+
+
+def _lexsort_tables(scene, vg, use, cap):
+    """The JAX package's decomposition tables
+    (glomap_tpu/processors/view_graph_manipulation.py:104-121) at a given
+    cap: (6 x (P, cap) f64, mask, the slots kept)."""
+    P = vg.num_pairs
+    keys = np.random.default_rng(0).random(vg.num_matches)
+    order = np.lexsort((keys, vg.match_pair))
+    ranks = np.empty(vg.num_matches, dtype=np.int64)
+    ranks[order] = np.arange(vg.num_matches) - \
+        vg.pair_match_offset[vg.match_pair[order]]
+    sel = ranks < cap
+    mp_s = vg.match_pair[sel]
+    rank_s = ranks[sel]
+    kp1 = scene.kp_offset[vg.pair_i[mp_s]] + vg.match_f1[sel]
+    kp2 = scene.kp_offset[vg.pair_j[mp_s]] + vg.match_f2[sel]
+    tabs = np.zeros((6, P, cap))
+    tabs[0:3, mp_s, rank_s] = scene.kp_ray[kp1].T
+    tabs[3:6, mp_s, rank_s] = scene.kp_ray[kp2].T
+    mask = np.zeros((P, cap), dtype=bool)
+    mask[mp_s, rank_s] = use[mp_s] & vg.match_inlier[sel]
+    tabs[2][~mask] = 1.0
+    tabs[5][~mask] = 1.0
+    return tabs, mask, int(sel.sum())
+
+
+def _tables_scene(sizes, seed=7):
+    """A lifted 8-frame scene whose pairs hold `sizes` matches in turn
+    (random keypoints of the pair's images, a quarter outliers), and
+    every third pair outside `use`."""
+    scene, vg, _ = synthesize_dataset(SyntheticOptions(
+        num_frames_per_rig=8, num_points3D=120, seed=seed))
+    jax_lift(scene)
+    t_scene, t_vg = _both(scene, vg)
+    rng = np.random.default_rng(seed)
+    P = t_vg.num_pairs
+    n = np.resize(np.asarray(sizes, np.int64), P)
+    t_vg.pair_match_offset = np.concatenate([[0], np.cumsum(n)])
+    t_vg.match_pair = np.repeat(np.arange(P, dtype=np.int32), n)
+    kp_n = np.diff(t_scene.kp_offset)
+    t_vg.match_f1 = (rng.random(n.sum()) * kp_n[
+        t_vg.pair_i[t_vg.match_pair]]).astype(np.int32)
+    t_vg.match_f2 = (rng.random(n.sum()) * kp_n[
+        t_vg.pair_j[t_vg.match_pair]]).astype(np.int32)
+    t_vg.match_inlier = rng.random(n.sum()) >= 0.25
+    use = np.arange(P) % 3 != 0
+    return t_scene, t_vg, use
+
+
+# (cap, match counts a pair cycles through): empty pairs, pairs under,
+# at and over the cap
+TABLE_CASES = {
+    "cap_16": (16, [0, 3, 15, 16, 17, 40]),
+    "cap_512": (tvgm.DECOMPOSE_CAP, [0, 7, 511, 512, 513, 1400]),
+}
+
+
+@pytest.mark.parametrize("case", list(TABLE_CASES))
+def test_decompose_tables_match_lexsort_oracle(case):
+    cap, sizes = TABLE_CASES[case]
+    scene, vg, use = _tables_scene(sizes)
+    tabs, mask, kept = _lexsort_tables(scene, vg, use, cap)
+    assert kept < vg.num_matches and not mask.all(axis=1).all()
+    with profiling.recording() as records:
+        with profiling.span("test"):
+            tab, t_mask = tvgm._decompose_tables(
+                scene, vg, use, "cpu", torch.float64, cap)
+    np.testing.assert_array_equal(t_mask.numpy(), mask)
+    for k in range(6):
+        np.testing.assert_array_equal(tab[k].numpy(), tabs[k])
+    assert records[0].counts == {"matches": vg.num_matches, "slots": kept}
+
+
+def test_decompose_tables_span_under_preprocessing(monkeypatch):
+    scene, vg, _ = synthesize_dataset(SyntheticOptions(
+        num_frames_per_rig=8, num_points3D=120, seed=11,
+        point2D_stddev=0.3))
+    t_scene, t_vg = _both(scene, vg)
+    spans = []
+
+    class Kept(profiling.span):
+        __slots__ = ()
+
+        def start(self):
+            spans.append(self)
+            return super().start()
+
+        __enter__ = start
+
+    monkeypatch.setattr(tvgm, "span", Kept)
+    # a cap under the pairs' 80-120 matches engages the selection
+    monkeypatch.setattr(tvgm, "DECOMPOSE_CAP", 64)
+    opts = tcfg.GlobalMapperOptions(
+        skip_view_graph_calibration=True,
+        skip_relative_pose_estimation=True, skip_rotation_averaging=True,
+        skip_track_establishment=True, skip_global_positioning=True,
+        skip_bundle_adjustment=True, skip_retriangulation=True)
+    mapper = tgm.GlobalMapper(opts, device="cpu")
+    with profiling.recording() as records:
+        mapper.solve(t_scene, t_vg)
+    (rec,) = [r for r in records if r.name == "frontend/decompose_tables"]
+    (stage,) = [r for r in records if r.id == rec.parent]
+    assert stage.name == "preprocessing"
+    keys = np.random.default_rng(0).random(t_vg.num_matches)
+    ranks = np.empty(t_vg.num_matches, dtype=np.int64)
+    order = np.lexsort((keys, t_vg.match_pair))
+    ranks[order] = np.arange(t_vg.num_matches) - \
+        t_vg.pair_match_offset[t_vg.match_pair[order]]
+    kept = int((ranks < 64).sum())
+    assert kept < t_vg.num_matches
+    assert rec.counts == {"matches": t_vg.num_matches, "slots": kept}
+    (sp,) = spans
+    assert sp.record is rec
+    rep = mapper.reports["preprocessing"]["decomposition"]
+    assert rep["tables_s"] == sp.seconds
 
 
 # ----------------------------------------------------------------------------
