@@ -22,7 +22,6 @@ run in the caller (controllers/global_mapper.py, stage 7).
 from __future__ import annotations
 
 import logging
-import time
 
 import numpy as np
 import torch
@@ -38,6 +37,7 @@ from glomap_tpu_torch.processors import track_filter as tf
 from glomap_tpu_torch.processors.undistortion import undistort_images
 from glomap_tpu_torch.scene.arrays import Scene, Tracks
 from glomap_tpu_torch.scene.view_graph import ViewGraph
+from glomap_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -328,16 +328,16 @@ def retriangulate_tracks(scene: Scene, vg: ViewGraph, tracks: Tracks,
     kp_mask = None
     generations = []
     for gen in range(max(int(opts.tri_num_generations), 1)):
-        t0 = time.monotonic()
-        t = establish_full_tracks(scene, vg, te_opts, kp_mask=kp_mask)
-        t.obs_valid &= reg[t.obs_image]
+        with span("retri/establish") as establish:
+            t = establish_full_tracks(scene, vg, te_opts, kp_mask=kp_mask)
+            t.obs_valid &= reg[t.obs_image]
         if int(t.obs_valid.sum()) < 2:
             break
-        t1 = time.monotonic()
-        t = _triangulate_track_set(scene, t, opts, device, dtype)
+        with span("retri/triangulate_set") as triangulate:
+            t = _triangulate_track_set(scene, t, opts, device, dtype)
         logger.info("retriangulation generation %d: establish %.2fs, "
-                    "triangulate %.2fs (%d tracks)", gen, t1 - t0,
-                    time.monotonic() - t1, t.num_tracks)
+                    "triangulate %.2fs (%d tracks)", gen, establish.seconds,
+                    triangulate.seconds, t.num_tracks)
         if t.num_tracks == 0:
             break
         generations.append({"tracks": t.num_tracks,

@@ -676,7 +676,7 @@ def solve_bundle_adjustment(scene: Scene, tracks: Tracks,
                 scene.sensor_trans[:] = st
             if opts.optimize_points:
                 tracks.xyz[point_ids] = X  # undo the layout's renumbering
-    solve_s = download.t1 - upload.t0
+    solve_s = (download.end_ns - upload.start_ns) / 1e9
     logging.getLogger(__name__).info(
         "BA solve: %d LM iters, cost %.3e, host prep %.2fs, solve %.2fs "
         "(%d obs, %d CG iters total, %.1f/LM, cap %d)",

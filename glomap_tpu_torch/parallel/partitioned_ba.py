@@ -34,7 +34,6 @@ scale by subsampling tracks (track_establishment.cc:153-225).
 from __future__ import annotations
 
 import logging
-import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -45,6 +44,7 @@ from glomap_tpu_torch.estimators.bundle_adjustment import build_ba_inputs
 from glomap_tpu_torch.parallel import mesh, multihost
 from glomap_tpu_torch.parallel.partitioner import Partition, partition_frames
 from glomap_tpu_torch.scene.arrays import Scene, Tracks
+from glomap_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -226,7 +226,7 @@ class PartitionedBA:
 
     def __init__(self, scene: Scene, tracks: Tracks, obs: dict,
                  num_parts: int, group=None):
-        t0 = time.monotonic()
+        partition = span("ba/partition").start()
         self.group = group
         rank, size = multihost.world(group)
         self.plan = plan = partition_points(scene, tracks, num_parts,
@@ -244,7 +244,7 @@ class PartitionedBA:
                                         minlength=num_parts)
         self.allreduce = mesh.AllReduce(group) \
             if torch.distributed.is_initialized() else None
-        self.prep_seconds = time.monotonic() - t0
+        self.prep_seconds = partition.stop()
         logger.info("partitioned BA: %d parts on %d ranks, cut %.2f%%, "
                     "points per part %s, observations per part %s",
                     num_parts, size, 100.0 * plan.cut_fraction,

@@ -20,7 +20,6 @@ solve (global_positioning.cc:28-93).
 from __future__ import annotations
 
 import logging
-import time
 
 import numpy as np
 import torch
@@ -30,6 +29,7 @@ from glomap_tpu_torch.parallel import mesh, multihost
 from glomap_tpu_torch.parallel.partitioned_ba import (obs_parts,
                                                       partition_points,
                                                       rank_share)
+from glomap_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -48,7 +48,7 @@ class PartitionedGP:
                  obs_w, t_obs, cc_i, cc_j, t_cc, cc_w, num_frames: int,
                  device, dtype, group=None):
         from glomap_tpu_torch.estimators.global_positioning import _solve_gp
-        t0 = time.monotonic()
+        partition = span("gp/partition").start()
         self._solve_gp = _solve_gp
         self.num_frames = num_frames
         self.device, self.dtype, self.group = device, dtype, group
@@ -93,7 +93,7 @@ class PartitionedGP:
             else None
         self.obs_per_part = np.bincount(obs_parts(plan, o_point)[0],
                                         minlength=num_parts)
-        self.prep_seconds = time.monotonic() - t0
+        self.prep_seconds = partition.stop()
         logger.info("partitioned GP: %d parts on %d ranks, cut %.2f%%, "
                     "points per part %s, observations per part %s",
                     num_parts, size, 100.0 * plan.cut_fraction,

@@ -35,7 +35,6 @@ and the ADMM counts the 3E rows of the whole graph.
 from __future__ import annotations
 
 import logging
-import time
 
 import numpy as np
 import torch
@@ -47,6 +46,7 @@ from glomap_tpu_torch.estimators import rotation_averaging as ra
 from glomap_tpu_torch.ops.linear import LaplacianEdges
 from glomap_tpu_torch.parallel import mesh, multihost
 from glomap_tpu_torch.parallel.partitioner import partition_graph
+from glomap_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -98,13 +98,12 @@ def solve_rotations_sharded(scene, view_graph, opts=None,
     prob = ra.rotation_problem(scene, view_graph, opts, pair_mask)
     if prob is None:
         return False
-    t0 = time.monotonic()
-    order, offsets, locality = partition_edge_order(
-        prob.num_frames, prob.fi, prob.fj, prob.w_edge, num_parts)
-    parts = mesh.parts_of_rank(rank, size, num_parts)
-    rows = np.concatenate([order[offsets[p]:offsets[p + 1]] for p in parts]
-                          + [np.zeros(0, np.int64)])
-    prep_s = time.monotonic() - t0
+    with span("ra/partition") as partition:
+        order, offsets, locality = partition_edge_order(
+            prob.num_frames, prob.fi, prob.fj, prob.w_edge, num_parts)
+        parts = mesh.parts_of_rank(rank, size, num_parts)
+        rows = np.concatenate([order[offsets[p]:offsets[p + 1]]
+                               for p in parts] + [np.zeros(0, np.int64)])
     logger.info("sharded RA: %d edges in %d parts over %d ranks, part "
                 "locality %.1f%%", len(prob.fi), num_parts, size,
                 100.0 * locality)
@@ -128,7 +127,7 @@ def solve_rotations_sharded(scene, view_graph, opts=None,
     st["sharded"] = {
         "parts": num_parts, "rank_parts": parts, "rank_edges": len(rows),
         "edges_per_part": np.diff(offsets).tolist(), "locality": locality,
-        "prep_seconds": prep_s,
+        "prep_seconds": partition.seconds,
         "allreduce_calls": hook.calls if hook else 0,
         "allreduce_bytes": hook.bytes if hook else 0}
     return ra.write_rotations(scene, q_final)

@@ -31,7 +31,6 @@ from __future__ import annotations
 
 import logging
 import math
-import time
 
 import numpy as np
 import torch
@@ -200,7 +199,6 @@ def image_pairs_inlier_count(scene: Scene, vg: ViewGraph,
     device = resolve_device(device)
     if vg.num_matches == 0:
         return None
-    t0 = time.monotonic()
     kp5 = torch.cat(device_keypoints(scene, device, dtype))
     f1 = cm.mean_focal(scene.cam_params[scene.image_camera[vg.pair_i]])
     f2 = cm.mean_focal(scene.cam_params[scene.image_camera[vg.pair_j]])
@@ -233,6 +231,6 @@ def image_pairs_inlier_count(scene: Scene, vg: ViewGraph,
     vg.pair_num_inliers = n_inl
     count("matches", vg.num_matches)
     logging.getLogger(__name__).debug(
-        "inlier sweep: %d matches in %d chunk(s), %.3fs", vg.num_matches,
-        len(bounds) - 1, time.monotonic() - t0)
+        "inlier sweep: %d matches in %d chunk(s)", vg.num_matches,
+        len(bounds) - 1)
     return score

@@ -12,7 +12,6 @@ in f64; scene.kp_ray keeps the rays as f64 numpy, and the (3, K) ray and
 from __future__ import annotations
 
 import logging
-import time
 
 import numpy as np
 import torch
@@ -20,6 +19,7 @@ import torch
 from glomap_tpu_torch.device import resolve_device
 from glomap_tpu_torch.ops import camera_models as cm
 from glomap_tpu_torch.scene.arrays import Scene
+from glomap_tpu_torch.utils.profiling import span
 
 
 def undistort_images(scene: Scene, num_iters: int = 25, device=None) -> None:
@@ -27,20 +27,22 @@ def undistort_images(scene: Scene, num_iters: int = 25, device=None) -> None:
     device = resolve_device(device)
     if scene.num_keypoints == 0:
         return
-    t0 = time.monotonic()
-    counts = np.diff(scene.kp_offset)
-    kp_cam = torch.from_numpy(
-        np.repeat(scene.image_camera, counts).astype(np.int64)).to(device)
-    params = torch.from_numpy(
-        np.asarray(scene.cam_params, np.float64)).to(device)
-    kind = torch.from_numpy(np.asarray(scene.cam_kind, np.int64)).to(device)
-    xy = torch.from_numpy(np.asarray(scene.kp_xy, np.float64)).to(device)
-    rays = cm.cam_rays_from_img(params[kp_cam], kind[kp_cam], xy, num_iters)
-    scene.kp_ray = rays.cpu().numpy()
-    scene._kp_dev = {}
+    with span("undistort/lift") as lift:
+        counts = np.diff(scene.kp_offset)
+        kp_cam = torch.from_numpy(
+            np.repeat(scene.image_camera, counts).astype(np.int64)).to(device)
+        params = torch.from_numpy(
+            np.asarray(scene.cam_params, np.float64)).to(device)
+        kind = torch.from_numpy(np.asarray(scene.cam_kind, np.int64)).to(
+            device)
+        xy = torch.from_numpy(np.asarray(scene.kp_xy, np.float64)).to(device)
+        rays = cm.cam_rays_from_img(params[kp_cam], kind[kp_cam], xy,
+                                    num_iters)
+        scene.kp_ray = rays.cpu().numpy()
+        scene._kp_dev = {}
     logging.getLogger(__name__).info("undistort: %d keypoints in %.3fs on %s",
-                                     scene.num_keypoints,
-                                     time.monotonic() - t0, device)
+                                     scene.num_keypoints, lift.seconds,
+                                     device)
 
 
 def device_keypoints(scene: Scene, device, dtype: torch.dtype):

@@ -20,7 +20,6 @@ port's device.
 from __future__ import annotations
 
 import logging
-import time
 
 import numpy as np
 import torch
@@ -39,7 +38,7 @@ from glomap_tpu_torch.scene.arrays import Scene
 from glomap_tpu_torch.scene.view_graph import (
     CONFIG_CALIBRATED, CONFIG_PANORAMIC, CONFIG_PLANAR,
     CONFIG_PLANAR_OR_PANORAMIC, CONFIG_UNCALIBRATED, ViewGraph)
-from glomap_tpu_torch.utils.profiling import count, span
+from glomap_tpu_torch.utils.profiling import count, seconds_since, span
 
 logger = logging.getLogger(__name__)
 
@@ -214,7 +213,7 @@ def decompose_rel_pose(scene: Scene, vg: ViewGraph,
     if stats is not None:
         stats.update(pairs_e=int(use_e.sum()), pairs_h=int(use_h.sum()),
                      pure_rotations=n_pure, tables_s=tables.seconds,
-                     seconds=time.perf_counter() - tables.t0)
+                     seconds=seconds_since(tables))
     return n_pure
 
 

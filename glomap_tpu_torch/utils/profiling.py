@@ -3,24 +3,28 @@
 Counterpart of glomap_tpu/utils/profiling.py: the reference's
 colmap::Timer around each stage (global_mapper.cc:32-38) as a registry
 of wall-clock seconds per pipeline stage. On a CUDA device every stage
-boundary synchronizes the device before it reads the clock, so a stage's
-seconds hold the device work it queued.
+synchronizes the device before it opens its span and again before it
+closes it, so a stage's seconds hold the device work it queued.
 
-Inside the stages, `span(name)` times a part of the work on the host
-(`.seconds`, from time.perf_counter) and never synchronizes: a timed
-part that must hold its device work ends in a host read of its results.
-Every stage is a span too, named after the stage; a command's stages are
-children of its root span (cli.py), and a child's name says its layer
-before the slash ("ba/lm", "read model/files"). `count(name, n)` adds to
-the innermost open span's counts, and `host_bool(t)` is bool(t) counted
-as one `host_reads`: a blocking read that empties the card's queue.
+Inside the stages, `span(name)` times a part of the work on the host and
+never synchronizes: a timed part that must hold its device work ends in
+a host read of its results. A span reads time.time_ns(), the clock of
+the profiler's events, once at each end, recording or not: `start_ns`
+and `end_ns`, and `.seconds` is (end_ns - start_ns) / 1e9. Every
+duration the port reports is a span's: a stage's entry in
+`StageTimer.stages`, its "done in" log line and its report's `seconds`
+are one number. Every stage is a span too, named after the stage; a
+command's stages are children of its root span (cli.py), and a child's
+name says its layer before the slash ("ba/lm", "read model/files").
+`count(name, n)` adds to the innermost open span's counts, and
+`host_bool(t)` is bool(t) counted as one `host_reads`: a blocking read
+that empties the card's queue.
 
 Spans and counts are stored while a torch profiler runs, or inside
 `recording()`; `recorded()` returns them and `reset()` drops them. A
-record's `start_ns` and `end_ns` are time.time_ns(), the clock of the
-profiler's events, so a host span and the card's intervals share one
-timeline. Off, a span costs a flag test and two clock reads and stores
-nothing. From a script:
+record holds its span's two clock reads, so a host span and the card's
+intervals share one timeline. Off, a span costs a flag test and two
+clock reads and stores nothing. From a script:
 
     from glomap_tpu_torch import cli
     from glomap_tpu_torch.utils import profiling
@@ -63,8 +67,8 @@ _local = threading.local()  # each thread's stack of open records
 @dataclass
 class Record:
     """One stored span: `parent` is the innermost span open at its start
-    (None for a root), `root` the id of its root span; the times are
-    time.time_ns()."""
+    (None for a root), `root` the id of its root span; the times are its
+    span's time.time_ns() reads."""
     id: int
     parent: int | None
     root: int
@@ -87,42 +91,47 @@ def _open() -> list:
 
 
 class span:
-    """Context manager timing a named part of the work; `.seconds` is its
-    host duration, `.t0` and `.t1` its perf_counter ends. start() and
-    stop() open and close it where a with block does not fit."""
+    """Context manager timing a named part of the work: `start_ns` and
+    `end_ns` are its ends on time.time_ns(), `.seconds` their difference
+    in seconds. start() and stop() open and close it where a with block
+    does not fit."""
 
-    __slots__ = ("name", "seconds", "t0", "t1", "record", "_range")
+    __slots__ = ("name", "seconds", "start_ns", "end_ns", "record",
+                 "_range")
 
     def __init__(self, name: str):
         self.name = name
         self.seconds = 0.0
-        self.t0 = self.t1 = 0.0
+        self.start_ns = self.end_ns = 0
         self.record = None
         self._range = None
 
     def start(self) -> "span":
+        rec = None
         if is_recording():
             stack = _open()
             parent = stack[-1] if stack else None
             rid = next(_ids)
-            self.record = Record(rid, parent.id if parent else None,
-                                 parent.root if parent else rid, self.name,
-                                 time.time_ns())
-            _buffer.append(self.record)
-            stack.append(self.record)
+            rec = self.record = Record(
+                rid, parent.id if parent else None,
+                parent.root if parent else rid, self.name, 0)
+            _buffer.append(rec)
+            stack.append(rec)
             if os.environ.get(TRACE_DIR_ENV):
                 self._range = torch.autograd.profiler.record_function(
                     self.name)
                 self._range.__enter__()
-        self.t0 = time.perf_counter()
+        self.start_ns = time.time_ns()
+        if rec is not None:
+            rec.start_ns = self.start_ns
         return self
 
     def stop(self) -> float:
-        self.t1 = time.perf_counter()
-        self.seconds = self.t1 - self.t0
+        self.end_ns = time.time_ns()
+        self.seconds = (self.end_ns - self.start_ns) / 1e9
         rec = self.record
         if rec is not None:
-            rec.end_ns = time.time_ns()
+            rec.end_ns = self.end_ns
             if self._range is not None:
                 self._range.__exit__(None, None, None)
             # a child left open by an exception closes with its parent
@@ -138,6 +147,11 @@ class span:
 
     def __exit__(self, *exc):
         self.stop()
+
+
+def seconds_since(sp: span) -> float:
+    """Seconds from the start of the span `sp` to now, on its clock."""
+    return (time.time_ns() - sp.start_ns) / 1e9
 
 
 def count(name: str, n: int = 1) -> None:
@@ -181,12 +195,10 @@ def reset() -> None:
     _buffer.clear()
 
 
-def device_clock(device) -> float:
-    """time.perf_counter() after the device's queued work has finished
-    (a CUDA device is synchronized first; the CPU runs in order)."""
-    if torch.device(device).type == "cuda":
+def _synchronize(device: torch.device) -> None:
+    """Wait for the device's queued work (the CPU runs in order)."""
+    if device.type == "cuda":
         torch.cuda.synchronize(device)
-    return time.perf_counter()
 
 
 class StageTimer:
@@ -195,12 +207,13 @@ class StageTimer:
     def __init__(self, device="cpu"):
         self.device = torch.device(device)
         self.stages = []  # (name, seconds)
-        self._t0 = time.perf_counter()
+        self._t0_ns = time.time_ns()
 
     @contextlib.contextmanager
     def stage(self, name: str):
-        """The stage `name`: a span from one device synchronize to the
-        next, logged at its start and its end; yields the span."""
+        """The stage `name`: a span from just after one device
+        synchronize to just after the next, logged at its start and at
+        its end with the span's seconds; yields the span."""
         trace_dir = os.environ.get(TRACE_DIR_ENV)
         prof = None
         if trace_dir:
@@ -209,22 +222,23 @@ class StageTimer:
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
             prof = torch.profiler.profile(activities=acts)
             prof.__enter__()
+        _synchronize(self.device)
         sp = span(name).start()
-        start = device_clock(self.device)
-        logger.info("[%7.1fs] ------ %s ------", start - self._t0, name)
+        logger.info("[%7.1fs] ------ %s ------",
+                    (sp.start_ns - self._t0_ns) / 1e9, name)
         try:
             yield sp
         finally:
-            dt = device_clock(self.device) - start
+            _synchronize(self.device)
             sp.stop()
             if prof is not None:
                 prof.__exit__(None, None, None)
                 os.makedirs(trace_dir, exist_ok=True)
                 prof.export_chrome_trace(os.path.join(
                     trace_dir, name.replace(" ", "_") + ".json"))
-            self.stages.append((name, dt))
+            self.stages.append((name, sp.seconds))
             logger.info("[%7.1fs] ------ %s done in %.2fs ------",
-                        time.perf_counter() - self._t0, name, dt)
+                        (sp.end_ns - self._t0_ns) / 1e9, name, sp.seconds)
 
     def summary(self) -> str:
         total = sum(s for _, s in self.stages)

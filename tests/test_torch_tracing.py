@@ -3,7 +3,9 @@
 * The recorder: ids, parents and roots; counts go to the innermost open
   span; host_bool counts `host_reads`; recording() yields a fresh buffer
   and restores the last, reset() clears it; a child left open closes with
-  its parent; off, a span times itself and stores nothing.
+  its parent; off, a span times itself and stores nothing; on or off, a
+  span reads the clock once at each end, and its seconds are its
+  record's; no module of the port reads another clock.
 * (a) The span tree of a small `mapper_resume` under recording(): the
   command's root, its stages and every named child, each child inside
   its parent's interval, unique ids, and the LM loops' counts against the
@@ -15,13 +17,18 @@
   one clock; a span enters the profiler as a range only with
   GLOMAP_TPU_TRACE_DIR set, and then the stage's Chrome trace holds it.
 * (d) The reports' seconds keep their keys and are their spans' seconds,
-  in mapper_resume and in the `mapper` command's stages 0-3 and 7.
+  in mapper_resume and in the `mapper` command's stages 0-3 and 7; a
+  stage's seconds, its "done in" log line and its record are one float;
+  each generation of stage 7's track building is two spans.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
+import re
+import types
 from pathlib import Path
 
 import numpy as np
@@ -55,7 +62,6 @@ CHILDREN = {
                  "ba/download"},
     "write model": {"write model/model", "write model/files"},
 }
-CLOCK_SLACK_S = 1e-3  # a record's clock against a span's perf_counter
 
 
 def _no_sync(*args, **kwargs):
@@ -142,8 +148,60 @@ def test_span_off_times_itself_and_stores_nothing(monkeypatch):
         profiling.count("lm_iters", 3)
         assert profiling.host_bool(torch.tensor(True))
     assert sp.record is None and sp.seconds >= 0
-    assert sp.seconds == pytest.approx(sp.t1 - sp.t0)
+    assert sp.seconds == (sp.end_ns - sp.start_ns) / 1e9
     assert profiling.recorded() == before
+
+
+@pytest.mark.parametrize("on", [False, True])
+def test_span_reads_the_clock_once_at_each_end(monkeypatch, on):
+    """On a clock that jumps 5 ms at every read, a span's seconds are
+    its record's to the bit, from one read at each end."""
+    monkeypatch.setattr(torch.cuda, "synchronize", _no_sync)
+    reads = []
+
+    def time_ns():
+        reads.append(None)
+        return 10**15 + 5_000_000 * len(reads)
+    monkeypatch.setattr(profiling, "time", types.SimpleNamespace(
+        time_ns=time_ns))
+    ctx = profiling.recording() if on else contextlib.nullcontext([])
+    with ctx as records:
+        with span("test/clock") as sp:
+            profiling.count("a")
+    assert len(reads) == 2
+    assert sp.end_ns - sp.start_ns == 5_000_000
+    assert sp.seconds == (sp.end_ns - sp.start_ns) / 1e9 == 0.005
+    if on:
+        (rec,) = records
+        assert (rec.start_ns, rec.end_ns) == (sp.start_ns, sp.end_ns)
+        assert sp.seconds == _seconds(rec)
+    else:
+        assert sp.record is None and records == []
+
+
+# the clock reads the source check allows: the kernel build's report,
+# the dry run's deadline and timings, and the sweep scene's generation
+CLOCK_FILES = {"ops/_build.py", "parallel/dryrun.py",
+               "utils/profile_sweep.py"}
+CLOCK_READ = re.compile(
+    r"\btime\.(perf_counter|monotonic|process_time|time\b)"
+    r"|\bfrom time import")
+
+
+def test_no_clock_outside_the_recorder():
+    """utils/profiling.py's time.time_ns() is the only clock a command's
+    path reads."""
+    root = Path(profiling.__file__).resolve().parent.parent
+    found = []
+    for path in sorted(root.rglob("*.py")):
+        rel = path.relative_to(root).as_posix()
+        if rel in CLOCK_FILES:
+            continue
+        for n, line in enumerate(path.read_text().splitlines(), 1):
+            if CLOCK_READ.search(line):
+                found.append(f"{rel}:{n}: {line.strip()}")
+    assert found == []
+    assert all((root / f).is_file() for f in CLOCK_FILES)
 
 
 def test_spans_nest_with_ids_parents_and_roots():
@@ -300,20 +358,27 @@ class _StageRecords(logging.Handler):
             self.stages.append((str(args[1]), float(args[2])))
 
 
-def test_mapper_resume_off_stores_nothing(model_dir, tmp_path):
+@contextlib.contextmanager
+def _stage_log():
+    """A _StageRecords on StageTimer's logger meanwhile."""
     log = logging.getLogger(profiling.__name__)
     handler = _StageRecords()
     saved = log.level
     log.setLevel(logging.INFO)
     log.addHandler(handler)
-    before = list(profiling.recorded())
     try:
-        assert not profiling.is_recording()
-        rc, mapper = _run(["mapper_resume", "--input_path", model_dir],
-                          tmp_path / "out")
+        yield handler
     finally:
         log.removeHandler(handler)
         log.setLevel(saved)
+
+
+def test_mapper_resume_off_stores_nothing(model_dir, tmp_path):
+    before = list(profiling.recorded())
+    with _stage_log() as handler:
+        assert not profiling.is_recording()
+        rc, mapper = _run(["mapper_resume", "--input_path", model_dir],
+                          tmp_path / "out")
     assert rc == 0
     assert profiling.recorded() == before
     assert [n for n, _ in handler.stages] == STAGES
@@ -363,7 +428,7 @@ def test_stage_trace_holds_its_child_spans(monkeypatch, tmp_path):
                 torch.ones(8).sum()
     finally:
         profiling.reset()
-    assert stage.record is not None and stage.seconds >= timer.stages[0][1]
+    assert stage.record is not None and stage.seconds == timer.stages[0][1]
     names = {e.get("name") for e in json.loads(
         (tmp_path / "bundle_adjustment.json").read_text())["traceEvents"]}
     assert {"bundle adjustment", "ba/lm", "aten::sum"} <= names
@@ -375,7 +440,34 @@ def test_stage_trace_holds_its_child_spans(monkeypatch, tmp_path):
 
 
 def _close(seconds, record):
-    assert abs(seconds - _seconds(record)) < CLOCK_SLACK_S, record.name
+    assert seconds == _seconds(record), record.name
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_stage_seconds_log_and_record_are_one_float(monkeypatch, device):
+    """A stage's timer.stages entry, its "done in" log line and its
+    record's duration; on CUDA the span opens after the first
+    synchronize and closes after the second."""
+    events = []
+
+    def sync(*args, **kwargs):
+        events.append("sync")
+    monkeypatch.setattr(torch.cuda, "synchronize", sync)
+    timer = StageTimer(device)
+    with _stage_log() as handler, profiling.recording() as records:
+        with timer.stage("global positioning") as sp:
+            events.append(("open", sp.start_ns))
+            torch.ones(8).sum()
+        events.append(("closed", sp.end_ns))
+    (rec,) = records
+    ((name, seconds),) = timer.stages
+    assert name == "global positioning" == rec.name
+    assert handler.stages == [(name, seconds)]
+    assert seconds == sp.seconds == _seconds(rec)
+    assert (rec.start_ns, rec.end_ns) == (sp.start_ns, sp.end_ns)
+    syncs = ["sync"] if device == "cuda" else []
+    assert events == [*syncs, ("open", sp.start_ns), *syncs,
+                      ("closed", sp.end_ns)]
 
 
 def test_mapper_resume_reports_are_their_spans(traced):
@@ -398,8 +490,8 @@ def test_mapper_resume_reports_are_their_spans(traced):
         _close(st["seconds"], rec)
         kids = {r.name: r for r in records if r.parent == rec.id}
         upload, download = kids["ba/upload"], kids["ba/download"]
-        assert abs(st["solve_seconds"] - (download.end_ns - upload.start_ns)
-                   / 1e9) < CLOCK_SLACK_S
+        assert st["solve_seconds"] == \
+            (download.end_ns - upload.start_ns) / 1e9
 
 
 @pytest.fixture(scope="module")
@@ -455,3 +547,25 @@ def test_mapper_reports_are_their_spans(mapper_traced):
     rounds = [rnd["ba"] for it in retri for rnd in it["rounds"]]
     for ba, rec in zip(rounds, round_solves, strict=True):
         _close(ba["seconds"], rec)
+
+
+def test_retriangulation_generations_are_spans(mapper_traced):
+    """Stage 7 keeps its report's keys, and each generation of its track
+    building is one `retri/establish` and one `retri/triangulate_set`
+    under `retri/triangulate`."""
+    records, mapper = mapper_traced
+    rep = mapper.reports["retriangulation"]
+    assert set(rep) == {"iterations", "final_removed", "seconds"}
+    tris = _named(records, "retri/triangulate")
+    for it, tri in zip(rep["iterations"], tris, strict=True):
+        assert set(it) == {"generations", "completed_in_place",
+                           "completed_from_matches", "merged", "tracks",
+                           "observations", "seconds", "rounds"}
+        kids = [r for r in records if r.parent == tri.id]
+        assert it["generations"]
+        assert [r.name for r in kids] == \
+            ["retri/establish", "retri/triangulate_set"] * \
+            len(it["generations"])
+        assert all(tri.start_ns <= r.start_ns <= r.end_ns <= tri.end_ns
+                   for r in kids)
+        assert tri.counts == {"tracks": it["tracks"]}
