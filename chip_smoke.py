@@ -10,7 +10,7 @@ plain PyTorch version, and time it.
 Phases (each raises on failure; the exit code is then non-zero):
 
 1. device  -- the card's name and power limit (nvidia-smi); build the
-              seven kernels with nvcc for sm_90a (all at once) and time it.
+              eight kernels with nvcc for sm_90a (all at once) and time it.
 2. kernels -- one LM iteration of the slice on the committed
               .bench_cache.npz problem (100 frames, 1001 points, 100,100
               observations, f32) records every distinct input each kernel
@@ -162,7 +162,7 @@ Phases (each raises on failure; the exit code is then non-zero):
               busy share), one round profiled (launches a round); pose
               errors against the generator within tests/test_relpose.py's
               noisy oracle. (d) `cli.main(["mapper", ...])` with the
-              counters zeroed (B1-B7 must launch; every kernel input of
+              counters zeroed (B1-B8 must launch; every kernel input of
               stages 0-7 is recorded, checked and timed like phase 2,
               the `mapper` path of the kernels line), again, with
               --checkpoint_dir, and resumed from that run's stage_02.npz
@@ -220,13 +220,30 @@ Phases (each raises on failure; the exit code is then non-zero):
               errors under 3 deg) and on its component graph on two gloo
               ranks (the same bits on both), each within MESH_RA_RAD of
               the one-device solve; all_reduce calls per sweep.
+12. ransac  -- B8 (csrc/ransac.cu, a chunk of stage 2's RANSAC in one
+              launch) on two tiles recorded from stage 2 of the
+              benchmark's loop cell at seed 1 (sfm_bench's generator; files
+              under build/ransac/; the mapper stops once both are
+              recorded): the first chunk's first tile and the first tile
+              of fewer than 100 pairs. Each: one launch, two launches bit
+              for bit, best counts within [incoming, unmasked slots], and
+              against the plain chain (ransac_chunk_plain, f32 on the card)
+              and the plain chain in f64 on the same tables: the share of
+              pairs whose best count differs, by how much, and the same of
+              the plain chain against f64; device ms (a CUDA graph), the
+              plain chain's ms, summed kernel time and launches, and the
+              bound (operations counted from ransac.cu). Then the tail tile
+              cut to 200 slots (odd pairs at 100 distinct slots, masked on
+              a third), checked the same way untimed, and the tie rule: a
+              pair whose two rounds tie keeps the earlier round's E.
 
 Output: the {"kernels": [...]} line (seven kernels; each path's numbers
 under "paths"), a {"slice": ...} line, an {"inlier_sweep": ...} line, a
 {"stages_4_6": ...} line, a {"mapper_resume": ...} line, a {"stage_7":
 ...} line, a {"stage_3": ...} line, a {"mapper": ...} line (its runs'
 StageTimer seconds: read database, stages 0-7, write model), a
-{"partitioned": ...} line, a {"mesh": ...} line, the card's name and
+{"partitioned": ...} line, a {"mesh": ...} line, a {"ransac": ...}
+line (B8's cases: its row of PERF.md's kernel table), the card's name and
 power limit, and last
 {"ok": true, "device": {...}}. Without a CUDA device it prints no result
 and exits 1.
@@ -360,7 +377,8 @@ REPLACES = {
                       "glomap_tpu/ops/pallas_kernels.py:949"),
 }
 # wrapper name -> its counter in kernels.LAUNCHES
-COUNTER = {"sampson_score": "sampson", "huber_irls": "huber"}
+COUNTER = {"sampson_score": "sampson", "huber_irls": "huber",
+           "ransac_chunk": "ransac"}
 # the kernels each path must launch
 BA_KERNELS = ("projection_resid_jac", "gather", "rowsum", "pair_rowsum",
               "gather_dot", "huber_irls")
@@ -475,7 +493,8 @@ RA_DIR = Path(__file__).resolve().parent / "build" / "rotation_averager"
 #   best count (up to 433 slots), and each f32 side ~1,700 against the
 #   CPU's f64 round; the summed best counts differ by 1.3e-3 (card
 #   1,131,816, CPU 1,133,339, f64 1,127,268). The bounds are on that share
-#   and on the sums;
+#   and on the sums. With B8 on the card: 1,332 pairs (up to 499
+#   slots), 1,683 against f64, the card's sum 1,134,220;
 # * the LO step from the same start: 1.88e-4 rad and 7.6e-5.
 MAPPER_DIR = Path(__file__).resolve().parent / "build" / "mapper"
 FRONT_DECOMPOSE_RAD = 1e-5
@@ -492,8 +511,46 @@ CALIB_START, CALIB_FOCAL_REL = 1.3, 0.01
 # share of pairs under 2 deg
 RELPOSE_MEDIAN_DEG, RELPOSE_UNDER_2DEG = 0.5, 0.85
 MAPPER_MIN_IMAGES = 99
-# the kernels on the mapper's path (B1-B7)
+# the kernels on the mapper's path (B1-B7; B8, which replaces no TPU
+# kernel, is required beside them in (d))
 MAPPER_KERNELS = tuple(REPLACES)
+# phase 12: B8 (csrc/ransac.cu) on two tiles of stage 2 of the benchmark's
+# loop cell at seed 1 (its database under build/ransac/): the first
+# ransac_chunk call and the first of fewer than RANSAC_TAIL_PAIRS pairs
+RANSAC_DIR = Path(__file__).resolve().parent / "build" / "ransac"
+RANSAC_CELL = "1dsfm-loop-800.mapper"
+RANSAC_SEED = 1
+RANSAC_TAIL_PAIRS = 100
+# f32 operations of B8, counted from ransac.cu (an FMA counts 2, a square
+# root, division, arccos or cosine 1): solving one hypothesis (its 8
+# epipolar rows 72, Gram matrix 675, min_eigvec9 ~1,870, essential
+# projection ~245), scoring one table slot (lines 16, C 16, denominator
+# 7, the clamped quotient and the compare 5), and lifting one slot in a
+# block (12)
+RANSAC_SOLVE_OPS = 2860
+RANSAC_SLOT_OPS = 44
+RANSAC_LIFT_OPS = 12
+# the derived case of phase 12: the tail tile cut to this cap
+RANSAC_SHORT_CAP = 200
+# B8 against the plain chain in f64 on the same f32 tables, beside the
+# plain f32 chain against it. The 8-point solve in f32 is fragile: its
+# shift of 1e-8 tr(AtA) is below the rounding of the Gram diagonal, and
+# the loop's short baselines (1,920 pure rotations at seed 1) leave
+# nullspaces of more than one dimension, which the rounding picks. Two
+# f32 orders of the same arithmetic then give other best counts on most
+# pairs: on an NVIDIA H100 80GB HBM3 (700 W) the plain chain's best
+# counts equal the f64 chain's on 23.7% of the first tile's 8,192 pairs
+# (76.0% of the tail's 79, 15.2% at cap 200), B8's on 23.1% (82.3%,
+# 19.0%), and B8's equal the plain chain's on 35.1% (79.7%, 34.2%). The
+# summed best counts of the plain chain stand 9.7% (3.7%, 77.5%) above
+# the f64 chain's, B8's 9.4% (1.5%, 70.5%). The checks: B8 differs from
+# the f64 chain on at most RANSAC_DIFFER_SLACK of the pairs more than the
+# plain chain does (measured: 0.006 more, then fewer), and its sum lies
+# at most RANSAC_SUM_SLACK of the f64 sum farther from it than the plain
+# chain's (measured: nearer on all three). Measured bounds, not derived
+# ones; both sides are deterministic.
+RANSAC_DIFFER_SLACK = 0.02
+RANSAC_SUM_SLACK = 0.02
 # phase 10: the partitioned solvers on the sequential capture at its
 # defaults (800 frames, 60,000 points, 3,000 keypoints an image, seed 1)
 # with bench_e2e.py's 0.5 px, on 4 parts; BA 10 LM iterations with no early
@@ -2507,9 +2564,9 @@ def front_end_vs_cpu(scene0, vg0, dev) -> dict:
                                 ) ** 2).to(d, dt)
         tabs[name] = (tab, mask, thr)
         t0 = time.perf_counter()
-        E, c = relpose._ransac_rounds(
-            [u.to(d)], torch.stack(tab, 1), mask, counts, thr,
-            torch.zeros((P, 3, 3), dtype=dt, device=d),
+        E, c = kernels.ransac_chunk(
+            u.to(d)[None], torch.stack(tab, 1), mask.contiguous(), counts,
+            thr, torch.zeros((P, 3, 3), dtype=dt, device=d),
             torch.zeros(P, dtype=torch.int64, device=d))
         c = c.cpu().numpy()
         rounds[name] = (E, c, time.perf_counter() - t0)
@@ -2564,12 +2621,13 @@ def check_front_end(fe: dict) -> None:
 
 
 def launches_per_round(scene, vg, dev) -> dict:
-    """One RANSAC round on every pair under torch.profiler: its device
-    kernels (launches) and device ms."""
+    """One RANSAC round on every pair (its draws and one ransac_chunk
+    call, B8 on the card) under torch.profiler: its device kernels
+    (launches) and device ms."""
     tab, mask, counts = relpose._pair_tables(scene, vg, 512, 1, dev,
                                              torch.float32)
     P = vg.num_pairs
-    args = (torch.stack(tab, 1), relpose._lift(tab), mask, counts,
+    args = (torch.stack(tab, 1), mask.contiguous(), counts,
             torch.full((P,), 1e-6, device=dev),
             torch.zeros((P, 3, 3), device=dev),
             torch.zeros(P, dtype=torch.int64, device=dev))
@@ -2578,7 +2636,7 @@ def launches_per_round(scene, vg, dev) -> dict:
     def one():
         u = torch.randint(0, 1 << 30, (P, 2, relpose.HYP_PER_ROUND),
                           generator=gen, device=dev)
-        return relpose._ransac_round(u, *args)
+        return kernels.ransac_chunk(u[None], *args)
     one()
     _, wall_ms, prof = profiled(one)
     kern = device_events(prof)
@@ -2662,7 +2720,7 @@ def mapper_command(db, names_gt, num_keypoints, dev, card):
     runs = {}
     cases = record_cases(lambda: runs.update(first=run("first")))
     launches = dict(kernels.LAUNCHES)
-    require_launched(launches, MAPPER_KERNELS, "mapper")
+    require_launched(launches, MAPPER_KERNELS + ("ransac_chunk",), "mapper")
     runs["second"] = run("second")
     runs["checkpointed"] = run("checkpointed", "--checkpoint_dir", str(ckpt))
     for path in ckpt.glob("stage_*.npz"):
@@ -3532,6 +3590,194 @@ def mesh_phase(database, capture, dev, card):
         "sharded_ra": (city_cases, city_launches)}
 
 
+# ----------------------------------------------------------------------------
+# phase 12: B8 on tiles of the loop's stage 2
+# ----------------------------------------------------------------------------
+
+
+class _TilesRecorded(Exception):
+    """Ends the loop's mapper once both tiles are recorded."""
+
+
+def loop_stage2_tiles() -> dict:
+    """{"first": args, "tail": args} of ransac_chunk in the `mapper` run
+    of the benchmark's loop cell at RANSAC_SEED, copied: its first call
+    (the first tile of the first chunk) and its first call on fewer than
+    RANSAC_TAIL_PAIRS pairs, where the run stops; or, where no chunk gets
+    that small, the first of its calls on the fewest pairs."""
+    from sfm_bench.gen.inputs import make_inputs
+    from sfm_bench.run import load_cell
+    shutil.rmtree(RANSAC_DIR, ignore_errors=True)
+    _, config, traffic = load_cell(RANSAC_CELL)
+    inputs = make_inputs(config, traffic, RANSAC_SEED,
+                         str(RANSAC_DIR / "input"))
+    tiles = {}
+    original = kernels.ransac_chunk
+
+    def recorded(us, *args):
+        label = "first" if not tiles else "tail"
+        if label not in tiles or us.shape[1] < tiles[label][0].shape[1]:
+            tiles[label] = tuple(a.clone() for a in (us, *args))
+        if tiles["tail" if "tail" in tiles else "first"][0].shape[1] < \
+                RANSAC_TAIL_PAIRS and len(tiles) == 2:
+            raise _TilesRecorded
+        return original(us, *args)
+    kernels.ransac_chunk = recorded
+    try:
+        rc = cli.main([*inputs.argv, "--output_path",
+                       str(RANSAC_DIR / "out")])
+        if rc != 0 or len(tiles) < 2:
+            raise AssertionError(f"ransac: the loop's mapper returned {rc} "
+                                 f"after {len(tiles)} recorded tile(s)")
+    except _TilesRecorded:
+        pass
+    finally:
+        kernels.ransac_chunk = original
+    shutil.rmtree(RANSAC_DIR, ignore_errors=True)
+    return tiles
+
+
+def ransac_work(R: int, P: int, H: int, cap: int) -> tuple:
+    """(bytes, f32 operations) of one B8 launch: the draws, each pair's
+    table and mask once, its count, threshold and best in and out; the
+    solves, the scores and each block's lift."""
+    nbytes = P * (R * 2 * H * 8 + 6 * cap * 4 + cap + 8 + 4 + 2 * (36 + 8))
+    ops = P * R * (H * (RANSAC_SOLVE_OPS + cap * RANSAC_SLOT_OPS)
+                   + cap * RANSAC_LIFT_OPS)
+    return nbytes, ops
+
+
+def count_agreement(c, ref) -> dict:
+    """How far best counts c lie from ref's, pair by pair."""
+    d = (c - ref).abs()
+    return {"equal_share": float((d == 0).float().mean()),
+            "differ": int((d > 0).sum()), "differ_over_2": int((d > 2).sum()),
+            "diff_max": int(d.max()), "sum": int(c.sum()),
+            "ref_sum": int(ref.sum())}
+
+
+def reversed_draws(u, counts):
+    """Draws whose 8 samples are u's in reverse order (base b + 7 s, step
+    n - s): the same slots in another Gram sum."""
+    n = torch.clamp(counts, min=1)[:, None]
+    b = u[:, 0] % n
+    s = 1 + u[:, 1] % torch.clamp(n - 1, min=1)
+    return torch.stack([(b + 7 * s) % n, (n - s - 1) % torch.clamp(
+        n - 1, min=1)], 1)
+
+
+def ransac_tie_check(args) -> dict:
+    """B8 on round 0's draws and on their reverse, alone and as one chunk
+    in both orders: the chunk's count is the larger, and a pair whose two
+    rounds tie keeps the earlier round's E."""
+    us, tab6, mask, counts, thr, E0, c0 = args
+    u0 = us[0]
+    u1 = reversed_draws(u0, counts)
+    Ea, ca = kernels.ransac_chunk(u0[None], tab6, mask, counts, thr, E0, c0)
+    Eb, cb = kernels.ransac_chunk(u1[None], tab6, mask, counts, thr, E0, c0)
+    tie = (ca == cb) & (ca > c0)
+    for first, E_first in ((u0, Ea), (u1, Eb)):
+        second = u1 if first is u0 else u0
+        E, c = kernels.ransac_chunk(torch.stack([first, second]), tab6, mask,
+                                    counts, thr, E0, c0)
+        ok = (torch.equal(c, torch.maximum(torch.maximum(ca, cb), c0))
+              and torch.equal(E[tie], E_first[tie])
+              and torch.equal(E[ca > cb], Ea[ca > cb])
+              and torch.equal(E[cb > ca], Eb[cb > ca]))
+        if not ok:
+            raise AssertionError("ransac: a tie across rounds did not keep "
+                                 "the earlier round, or a count was lost")
+    return {"ties": int(tie.sum()),
+            "ties_with_other_E": int((tie & (Ea != Eb).flatten(1).any(1)
+                                      ).sum())}
+
+
+def ransac_case(label, args, peak_bw, peak_flops, timed=True) -> dict:
+    """B8 against its plain version (f32, on the card) and the plain
+    version in f64 (the same f32 tables): launches, bit-for-bit repeats,
+    the best counts' agreement, and, where timed, device ms (a CUDA graph
+    of launches), the plain chain's ms (CUDA events; and its summed
+    kernel time and launches under the profiler) and the bound."""
+    us, tab6, mask, counts, thr, E0, c0 = args
+    R, P, _, H = us.shape
+    cap = tab6.shape[2]
+    before = kernels.LAUNCHES["ransac"]
+    E_k, c_k = kernels.ransac_chunk(*args)
+    launches = kernels.LAUNCHES["ransac"] - before
+    E_k2, c_k2 = kernels.ransac_chunk(*args)
+    if launches != 1 or not (torch.equal(E_k, E_k2)
+                             and torch.equal(c_k, c_k2)):
+        raise AssertionError(f"ransac {label}: {launches} launches, or two "
+                             "launches differ")
+    unmasked = mask.sum(1)
+    if not bool(((c_k >= c0) & (c_k <= torch.maximum(unmasked, c0))).all()):
+        raise AssertionError(f"ransac {label}: a best count out of range")
+    _, c_p = kernels.ransac_chunk_plain(*args)
+    _, c_d = kernels.ransac_chunk_plain(us, tab6.double(), mask, counts,
+                                        thr.double(), E0.double(), c0)
+    out = {"label": label, "pairs": P, "rounds": R, "hypotheses": H,
+           "cap": cap, "launches": launches, "bitwise_reproducible": True,
+           "vs_plain": count_agreement(c_k, c_p),
+           "vs_f64": count_agreement(c_k, c_d),
+           "plain_vs_f64": count_agreement(c_p, c_d)}
+    b8, plain = out["vs_f64"], out["plain_vs_f64"]
+    f64_sum = b8["ref_sum"]
+    if (b8["differ"] > plain["differ"] + RANSAC_DIFFER_SLACK * P
+            or abs(b8["sum"] - f64_sum) > abs(plain["sum"] - f64_sum)
+            + RANSAC_SUM_SLACK * f64_sum):
+        raise AssertionError(f"ransac {label}: B8 lies farther from the f64 "
+                             f"chain than the plain f32 chain does: {out}")
+    if timed:
+        saved = dict(kernels.LAUNCHES)  # timing launches are not the path's
+        out["ms"] = graph_ms(lambda: kernels.ransac_chunk(*args), reps=10,
+                             replays=3)
+        kernels.LAUNCHES.update(saved)
+        out["plain_ms"] = _events_ms(
+            lambda: kernels.ransac_chunk_plain(*args), reps=3)
+        _, _, prof = profiled(lambda: kernels.ransac_chunk_plain(*args))
+        out["plain_device_ms"] = device_ms(prof) or "not measured"
+        out["plain_launches"] = len(device_events(prof))
+        nbytes, ops = ransac_work(R, P, H, cap)
+        t_bytes, t_ops = nbytes / peak_bw * 1e3, ops / peak_flops * 1e3
+        out.update(bytes=nbytes, operations=ops,
+                   bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   hypotheses_per_s=R * P * H / out["ms"] * 1e3)
+    return out
+
+
+def ransac_phase(peak_bw, peak_flops) -> dict:
+    """Phase 12: B8 on the loop's first and tail tiles (timed), the tail
+    tile cut to RANSAC_SHORT_CAP slots with odd pairs at half as many
+    distinct slots and masked on a third, from a zero best (checked), and
+    the tie rule."""
+    t_phase = time.perf_counter()
+    tiles = loop_stage2_tiles()
+    record_s = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+    cases = [ransac_case(k, tiles[k], peak_bw, peak_flops)
+             for k in ("first", "tail")]
+    us, tab6, mask, counts, thr, E0, c0 = tiles["tail"]
+    short_counts = torch.clamp(counts, max=RANSAC_SHORT_CAP)
+    short_counts[1::2] = torch.clamp(short_counts[1::2],
+                                     max=RANSAC_SHORT_CAP // 2)
+    short_mask = mask[:, :RANSAC_SHORT_CAP].clone()
+    short_mask[1::2, ::3] = False
+    short = (us, tab6[:, :, :RANSAC_SHORT_CAP].contiguous(), short_mask,
+             short_counts, thr, torch.zeros_like(E0), torch.zeros_like(c0))
+    cases.append(ransac_case(f"tail at cap {RANSAC_SHORT_CAP}", short,
+                             peak_bw, peak_flops, timed=False))
+    ties = ransac_tie_check(tiles["first"])
+    for c in cases:
+        print(f"# ransac {c['label']}: {c['pairs']} pairs, "
+              f"vs plain {c['vs_plain']}, vs f64 {c['vs_f64']}, plain vs "
+              f"f64 {c['plain_vs_f64']}, ms {c.get('ms')} (plain "
+              f"{c.get('plain_ms')})", file=sys.stderr)
+    return {"cell": RANSAC_CELL, "seed": RANSAC_SEED, "cases": cases,
+            "tie_check": ties, "record_seconds": record_s,
+            "phase_seconds": time.perf_counter() - t_phase}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3776,6 +4022,9 @@ def main() -> int:
         stage_launches[path] = path_launches
     del mesh_paths
 
+    # phase 12: B8 on tiles of the benchmark's loop cell at seed 1
+    ransac = ransac_phase(peak_bw, peak_flops)
+
     paths = [("ba", per_kernel, launches),
              ("inlier_sweep", per_sweep, sweep_launches)] + \
         [(p, per_stage[p], stage_launches[p]) for p in per_stage]
@@ -3823,6 +4072,7 @@ def main() -> int:
     print(json.dumps({"mapper": mapper}))
     print(json.dumps({"partitioned": part}))
     print(json.dumps({"mesh": mesh}))
+    print(json.dumps({"ransac": {**ransac, "card": card}}))
     print(card)
     # the run used one card
     print(json.dumps({"ok": True, "device": {

@@ -664,6 +664,12 @@ def solve_bundle_adjustment(scene: Scene, tracks: Tracks,
             X, point_ids = share.fetch_points(X)
         fq, ft, cp, X, sq, st = (t.detach().to("cpu", torch.float64).numpy()
                                  for t in (fq, ft, cp, X, sq, st))
+        # solved in f32, a quaternion is unit only to f32 rounding (|q| - 1
+        # up to ~1e-7); the host passes after the solve (the reprojection
+        # filters) rotate with it as it is, a model's reader normalizes it,
+        # and the two disagree at the filter's threshold: make it unit here
+        fq, sq = (q / np.linalg.norm(q, axis=-1, keepdims=True)
+                  for q in (fq, sq))
         cost = float(cost)
         ok = bool(np.all(np.isfinite(fq)) and np.all(np.isfinite(ft)) and
                   np.all(np.isfinite(cp)) and np.all(np.isfinite(X)))

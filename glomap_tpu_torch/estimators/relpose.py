@@ -13,22 +13,28 @@ counts each hypothesis's inliers on the pair's table; the best E per pair
 is decomposed and chosen by cheirality, then refined by a batched LM on
 the truncated Sampson cost (the LO step).
 
+A chunk of rounds is one call of ops/kernels.py ransac_chunk: on the card
+one launch of B8 (csrc/ransac.cu) for all of a tile's pairs and rounds,
+on the CPU _ransac_round once a round.
+
 Divergences by design (ROADMAP C.10):
   * the round takes its random draws `u` (P, 2, 64) as an argument;
     estimate_relative_poses draws them with a torch.Generator seeded from
-    `seed`, where the JAX package splits jax.random keys;
+    `seed`, one (P, 2, 64) draw a round and tile, where the JAX package
+    splits jax.random keys;
   * all active pairs run in one set (tiles only bound memory), and the
     best counts are read after every chunk of 512 hypotheses, so a pair
     stops at the first chunk boundary at or past its stopping number
     clip(log(1 - 0.9999) / log1p(-r^8), num_hypotheses, max_iterations)
     (the JAX package reads them every few chunks and may overshoot);
     ineligible pairs (invalid, or fewer than 8 matches) spend nothing;
-  * the hypotheses are scored by batched matrix products (C = E . (b x a),
-    E a and E^T b) in blocks of hypotheses sized by memory.
+  * on the CPU the hypotheses are scored by batched matrix products (C =
+    E . (b x a), E a and E^T b) in blocks of hypotheses sized by memory.
 
 The "frontend/ransac" span counts the pair-hypotheses scored
-(`hypotheses`, summed over the pairs), the chunks and the host reads of
-the best counts after each chunk (`host_reads`).
+(`hypotheses`, summed over the pairs), the chunks, the host reads of the
+best counts after each chunk (`host_reads`) and B8's launches
+(`launches`, 0 on the CPU).
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from glomap_tpu_torch.device import resolve_device
 from glomap_tpu_torch.math import rotation as rotm
 from glomap_tpu_torch.math import two_view as tv
 from glomap_tpu_torch.ops import camera_models as cm
+from glomap_tpu_torch.ops import kernels
 from glomap_tpu_torch.ops import smallalg as sa
 from glomap_tpu_torch.processors.undistortion import device_keypoints
 from glomap_tpu_torch.scene.arrays import Scene
@@ -56,7 +63,8 @@ CONFIDENCE = 0.9999
 # (pairs x hypotheses x cap) elements of one scoring block: 8 hypotheses
 # of 4,950 pairs at cap 512 make an 81 MB f32 block
 SCORE_BLOCK_ELEMS = 1 << 25
-# pairs per tile of a chunk (bounds the round's (P, 64, 9, 9) systems)
+# pairs per tile of a chunk (bounds the plain round's (P, 64, 9, 9)
+# systems; the draws are made a tile at a time)
 TILE_PAIRS = 8192
 
 _W = ((0.0, -1.0, 0.0), (1.0, 0.0, 0.0), (0.0, 0.0, 1.0))
@@ -225,15 +233,6 @@ def _ransac_round(u, tab6, lift, mask, counts, thr, best_E, best_cnt):
     best_E = torch.where(improve[:, None, None],
                          E9[ar, h_best].reshape(P, 3, 3), best_E)
     best_cnt = torch.where(improve, cnt_best, best_cnt)
-    return best_E, best_cnt
-
-
-def _ransac_rounds(us, tab6, mask, counts, thr, best_E, best_cnt):
-    """Rounds with the given draws `us` (a sequence of (P, 2, H))."""
-    lift = _lift(tab6.unbind(1))
-    for u in us:
-        best_E, best_cnt = _ransac_round(u, tab6, lift, mask, counts, thr,
-                                         best_E, best_cnt)
     return best_E, best_cnt
 
 
@@ -410,7 +409,6 @@ def estimate_relative_poses(scene: Scene, vg: ViewGraph,
     cap = max(int(getattr(opts, "score_match_cap", 512) or 512), 16)
     tab, mask, counts_d = _pair_tables(scene, vg, cap, seed, device, dtype)
     tab6 = torch.stack(tab, 1)
-    lift = _lift(tab)
     # the normalized Sampson threshold per pair: px * 0.5 (1/f1 + 1/f2)
     f1 = cm.mean_focal(scene.cam_params[scene.image_camera[vg.pair_i]])
     f2 = cm.mean_focal(scene.cam_params[scene.image_camera[vg.pair_j]])
@@ -438,17 +436,16 @@ def estimate_relative_poses(scene: Scene, vg: ViewGraph,
     prep.stop()
     ransac = span("frontend/ransac").start()
     n_chunks = 0
+    launches = kernels.LAUNCHES["ransac"]
     while len(active):
         for a0 in range(0, len(active), TILE_PAIRS):
             ids = torch.from_numpy(active[a0:a0 + TILE_PAIRS]).to(device)
-            sub = (tab6[ids], tuple(x[ids] for x in lift), mask[ids],
-                   counts_d[ids], sq_thres[ids])
-            E_a, c_a = best_E[ids], best_cnt[ids]
-            for _ in range(chunk_rounds):
-                u = torch.randint(0, 1 << 30, (len(ids), 2, H),
-                                  generator=gen, device=device)
-                E_a, c_a = _ransac_round(u, *sub, E_a, c_a)
-            best_E[ids], best_cnt[ids] = E_a, c_a
+            us = torch.stack([
+                torch.randint(0, 1 << 30, (len(ids), 2, H), generator=gen,
+                              device=device) for _ in range(chunk_rounds)])
+            best_E[ids], best_cnt[ids] = kernels.ransac_chunk(
+                us, tab6[ids], mask[ids], counts_d[ids], sq_thres[ids],
+                best_E[ids], best_cnt[ids])
         done[active] += chunk_hyp
         n_chunks += 1
         target = _stopping_number(best_cnt.cpu().numpy(), slots, min_hyp,
@@ -457,6 +454,7 @@ def estimate_relative_poses(scene: Scene, vg: ViewGraph,
         active = np.nonzero(eligible & (done < target))[0]
     count("hypotheses", int(done.sum()))
     count("chunks", n_chunks)
+    count("launches", kernels.LAUNCHES["ransac"] - launches)
     ransac.stop()
     with span("frontend/choose") as choose:
         q, t = _choose_pose_tab(best_E, tab, mask)

@@ -28,6 +28,7 @@ SOURCES = {
     "gather_dot": "gather_dot.cu",
     "huber": "huber.cu",
     "sampson": "sampson.cu",
+    "ransac": "ransac.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -1,11 +1,12 @@
 """The port's CUDA kernels: wrappers, plain versions, counters.
 
-Counterpart of glomap_tpu/ops/pallas_kernels.py. Each kernel comes in
-three parts:
+Counterpart of glomap_tpu/ops/pallas_kernels.py, and of the JAX
+package's chunk of RANSAC rounds (B8, `ransac_chunk`). Each kernel comes
+in three parts:
 
   * a wrapper (`projection_resid_jac`, `gather`, `rowsum`,
-    `pair_rowsum`, `gather_dot`, `huber_irls`, `sampson_score`)
-    that takes the plain version for a
+    `pair_rowsum`, `gather_dot`, `huber_irls`, `sampson_score`,
+    `ransac_chunk`) that takes the plain version for a
     CPU tensor and otherwise launches the CUDA kernel (`_*_cuda`) or
     raises -- there is no fallback;
   * the plain PyTorch version (`*_plain`), the reference the tests and
@@ -35,7 +36,8 @@ import torch
 from glomap_tpu_torch.ops import _build
 
 LAUNCHES = {"projection_resid_jac": 0, "gather": 0, "rowsum": 0,
-            "pair_rowsum": 0, "gather_dot": 0, "huber": 0, "sampson": 0}
+            "pair_rowsum": 0, "gather_dot": 0, "huber": 0, "sampson": 0,
+            "ransac": 0}
 # the z-normalisation offset and denominator clamp of the Sampson error
 SAMPSON_EPS = 1e-12
 # CSR entries per chunk: one warp's work item in rowsum.cu (four
@@ -402,6 +404,19 @@ def sampson_score_plain(E9, x1T, x2T):
     return C * C / torch.clamp(denom, min=SAMPSON_EPS)
 
 
+def ransac_chunk_plain(us, tab6, mask, counts, thr, best_E, best_cnt):
+    """The rounds of `us` (R, P, 2, H) in turn: estimators/relpose.py's
+    _ransac_round on the pair tables tab6 (P, 6, cap) and their lift,
+    each folded into the running best (best_E (P, 3, 3), best_cnt (P,))."""
+    # relpose imports this module, so it is imported here, at the call
+    from glomap_tpu_torch.estimators import relpose
+    lift = relpose._lift(tab6.unbind(1))
+    for u in us:
+        best_E, best_cnt = relpose._ransac_round(u, tab6, lift, mask, counts,
+                                                 thr, best_E, best_cnt)
+    return best_E, best_cnt
+
+
 # ----------------------------------------------------------------------------
 # wrappers
 # ----------------------------------------------------------------------------
@@ -463,6 +478,19 @@ def sampson_score(E9: torch.Tensor, x1T: torch.Tensor,
     return _sampson_score_cuda(E9, x1T, x2T)
 
 
+def ransac_chunk(us: torch.Tensor, tab6: torch.Tensor, mask: torch.Tensor,
+                 counts: torch.Tensor, thr: torch.Tensor, best_E: torch.Tensor,
+                 best_cnt: torch.Tensor):
+    """R rounds of H 8-point hypotheses per pair, folded into the running
+    best: draws us (R, P, 2, H) in [0, 2^30), tables tab6 (P, 6, cap),
+    mask (P, cap), counts (P,) distinct slots, squared thresholds thr
+    (P,), best_E (P, 3, 3), best_cnt (P,) -> the new (best_E, best_cnt)."""
+    if tab6.device.type == "cpu":
+        return ransac_chunk_plain(us, tab6, mask, counts, thr, best_E,
+                                  best_cnt)
+    return _ransac_chunk_cuda(us, tab6, mask, counts, thr, best_E, best_cnt)
+
+
 # ----------------------------------------------------------------------------
 # CUDA launches (ctypes)
 # ----------------------------------------------------------------------------
@@ -479,6 +507,7 @@ _SIGNATURES = {
     "huber": ("glomap_huber_irls", [_P] * 4 + [_I] + [ctypes.c_float] * 3
               + [_I, _P]),
     "sampson": ("glomap_sampson", [_P] * 4 + [_I, _P]),
+    "ransac": ("glomap_ransac_chunk", [_P] * 12 + [_I] * 4 + [_P]),
 }
 _entries: dict = {}
 # pair_rowsum.cu: its ring of PAIR_STAGES staged sub-tiles of U and V rows
@@ -783,3 +812,47 @@ def _sampson_score_cuda(E9, x1T, x2T) -> torch.Tensor:
     _raise_on(rc, "sampson_score")
     LAUNCHES["sampson"] += 1
     return out
+
+
+def _check_tensor(name: str, t: torch.Tensor, shape: tuple,
+                  dtype: torch.dtype, device: torch.device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: the CUDA kernel takes {dtype}, "
+                        f"got {t.dtype}")
+    if tuple(t.shape) != shape or not t.is_contiguous():
+        raise ValueError(f"{name}: need a contiguous {shape}, got "
+                         f"{tuple(t.shape)}")
+
+
+def _ransac_chunk_cuda(us, tab6, mask, counts, thr, best_E, best_cnt):
+    fn = _entry("ransac")
+    dev = tab6.device
+    if dev.type != "cuda":
+        raise ValueError(f"ransac_chunk: the CUDA kernel needs a CUDA "
+                         f"tensor, got {dev}")
+    P, _, cap = tab6.shape
+    R, H = us.shape[0], us.shape[-1]
+    for name, t, shape, dtype in (
+            ("us", us, (R, P, 2, H), torch.int64),
+            ("tab6", tab6, (P, 6, cap), torch.float32),
+            ("mask", mask, (P, cap), torch.bool),
+            ("counts", counts, (P,), torch.int64),
+            ("thr", thr, (P,), torch.float32),
+            ("best_E", best_E, (P, 3, 3), torch.float32),
+            ("best_cnt", best_cnt, (P,), torch.int64)):
+        _check_tensor(f"ransac_chunk {name}", t, shape, dtype, dev)
+    out_E = torch.empty((P, 3, 3), dtype=torch.float32, device=dev)
+    out_cnt = torch.empty((P,), dtype=torch.int64, device=dev)
+    scratch_cnt = torch.empty((P, R), dtype=torch.int32, device=dev)
+    scratch_E = torch.empty((P, R, 9), dtype=torch.float32, device=dev)
+    counters = torch.zeros((P,), dtype=torch.int32, device=dev)
+    rc = fn(us.data_ptr(), tab6.data_ptr(), mask.data_ptr(),
+            counts.data_ptr(), thr.data_ptr(), best_E.data_ptr(),
+            best_cnt.data_ptr(), scratch_cnt.data_ptr(), scratch_E.data_ptr(),
+            counters.data_ptr(), out_E.data_ptr(), out_cnt.data_ptr(), P, R,
+            H, cap, _stream(dev))
+    _raise_on(rc, "ransac_chunk")
+    LAUNCHES["ransac"] += 1
+    return out_E, out_cnt

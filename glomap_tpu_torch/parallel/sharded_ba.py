@@ -80,7 +80,9 @@ def solve_ba_sharded(scene: Scene, tracks: Tracks,
             "parts": num_parts, "rank_parts": parts, "rank_obs": len(rows),
             "allreduce_calls": hook.calls if hook else 0,
             "allreduce_bytes": hook.bytes if hook else 0}
-    scene.frame_quat[:] = fq.detach().cpu().double().numpy()
+    fq = fq.detach().cpu().double().numpy()
+    # unit in f64, as bundle_adjustment.solve_bundle_adjustment leaves it
+    scene.frame_quat[:] = fq / np.linalg.norm(fq, axis=-1, keepdims=True)
     scene.frame_trans[:] = ft.detach().cpu().double().numpy()
     scene.cam_params[:] = cp.detach().cpu().double().numpy()
     if statics["optimize_points"]:

@@ -219,6 +219,22 @@ def test_solve_bundle_adjustment_matches_jax(mono_scene):
     assert not np.array_equal(t_tracks.xyz, tracks.xyz)  # the solve moved
 
 
+def test_solve_bundle_adjustment_f32_leaves_unit_quaternions(rig_scene):
+    """Solved in f32, the frame and rig quaternions come back unit in f64:
+    the host filters after a solve and a model's readers, which normalize,
+    see one rotation."""
+    scene, tracks = rig_scene
+    t_scene = scene_from_arrays(_fields(scene))
+    t_tracks = tracks_from_arrays(_fields(tracks))
+    assert tba.solve_bundle_adjustment(
+        t_scene, t_tracks, BundleAdjusterOptions(
+            max_num_iterations=LM_ITERS, optimize_rig_poses=True),
+        dtype=torch.float32, device="cpu")
+    for q in (t_scene.frame_quat, t_scene.sensor_quat):
+        assert np.abs(np.linalg.norm(q, axis=1) - 1.0).max() <= 1e-15
+    assert not np.array_equal(t_scene.frame_quat, scene.frame_quat)
+
+
 @pytest.mark.slow
 def test_solve_ba_bench_cache_f32_matches_jax():
     """The committed bench problem (100 frames, 100,100 observations),

@@ -210,10 +210,19 @@ def _launch_cases():
          (torch.randn(5, 4), rows(8), ax)),
         ("huber_irls", kernels._huber_irls_cuda,
          (rows(2), 1.0, torch.rand(O, generator=g))),
+        ("ransac_chunk", kernels._ransac_chunk_cuda,
+         (torch.randint(0, 1 << 30, (2, 5, 2, 64), generator=g),
+          torch.rand((5, 6, 16), generator=g),
+          torch.ones((5, 16), dtype=torch.bool),
+          torch.full((5,), 16, dtype=torch.int64), torch.rand(5, generator=g),
+          torch.zeros((5, 3, 3)), torch.zeros(5, dtype=torch.int64))),
     ]
 
 
-@pytest.mark.parametrize("case", range(7),
+N_LAUNCH_CASES = len(_launch_cases())
+
+
+@pytest.mark.parametrize("case", range(N_LAUNCH_CASES),
                          ids=[c[0] for c in _launch_cases()])
 def test_cuda_launch_raises_when_build_fails(broken_build, case):
     name, launch, args = _launch_cases()[case]
@@ -223,7 +232,7 @@ def test_cuda_launch_raises_when_build_fails(broken_build, case):
     assert kernels.LAUNCHES == before
 
 
-@pytest.mark.parametrize("case", range(7),
+@pytest.mark.parametrize("case", range(N_LAUNCH_CASES),
                          ids=[c[0] for c in _launch_cases()])
 def test_wrapper_takes_kernel_path_off_cpu(broken_build, case):
     """A tensor that is not on the CPU (here on the meta device) goes to

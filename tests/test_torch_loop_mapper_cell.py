@@ -127,6 +127,8 @@ def test_ransac_counters_equal_the_relpose_report(loop_run):
     assert c["chunks"] == rep["chunks"] > 1
     # one read of the best counts after every chunk
     assert c["host_reads"] == rep["chunks"]
+    # B8 launches only on the card
+    assert c["launches"] == 0
 
 
 def test_inlier_sweep_counts_every_match(loop_run):

@@ -7,9 +7,16 @@ package, both on the CPU in f64 (JAX under x64).
   component forms.
 * The Sampson and cheirality tables within 1e-12 (booleans exact), and
   the blocked Sampson scorer.
-* _ransac_rounds fed the JAX package's own draws (jax.random on the same
-  keys): equal best counts and E within 1e-9; _choose_pose_tab picks the
-  same candidate; _refine_poses_tab within 1e-8 after 10 iterations.
+* ops/kernels.py ransac_chunk_plain fed the JAX package's own draws
+  (jax.random on the same keys): equal best counts and E within 1e-9;
+  _choose_pose_tab picks the same candidate; _refine_poses_tab within
+  1e-8 after 10 iterations.
+* ransac_chunk_plain, the plain version of B8 (csrc/ransac.cu), is
+  successive _ransac_round calls bit for bit, at cap 64 and at a cap of
+  200 with pairs of fewer distinct slots; a tie across rounds keeps the
+  earlier round's hypothesis; and estimate_relative_poses on the CPU
+  spends the parent's draws (one torch.randint a round and tile) and
+  counts no launch of the kernel.
 * The pair tables bit for bit (the same default_rng draws).
 * tests/test_relpose.py's four oracles through the port's
   estimate_relative_poses, the budget rule in its port form: each pair
@@ -31,6 +38,7 @@ from glomap_tpu.utils.synthetic import SyntheticOptions, synthesize_dataset
 from glomap_tpu_torch.config import RelPoseEstimationOptions
 from glomap_tpu_torch.estimators import relpose as trp
 from glomap_tpu_torch.math import rotation as trot
+from glomap_tpu_torch.ops import kernels
 from glomap_tpu_torch.ops import smallalg as tsa
 from glomap_tpu_torch.processors.undistortion import undistort_images
 from glomap_tpu_torch.utils.carry import scene_from_jax, view_graph_from_jax
@@ -230,9 +238,10 @@ def rounds(tables):
         jnp.zeros(P, jnp.int32), 64, 3)
     us = [torch.from_numpy(u.astype(np.int64))
           for u in _jax_draws(key, 3, P)]
-    tE, tc = trp._ransac_rounds(us, torch.stack(tab, 1), mask, counts, thr,
-                                torch.zeros((P, 3, 3), dtype=torch.float64),
-                                torch.zeros(P, dtype=torch.int64))
+    tE, tc = kernels.ransac_chunk_plain(
+        torch.stack(us), torch.stack(tab, 1), mask, counts, thr,
+        torch.zeros((P, 3, 3), dtype=torch.float64),
+        torch.zeros(P, dtype=torch.int64))
     return (tE, tc), (np.asarray(jE), np.asarray(jc))
 
 
@@ -241,6 +250,104 @@ def test_ransac_rounds_match_jax_draws(rounds):
     np.testing.assert_array_equal(tc.numpy(), jc)
     assert (jc > 0).all()
     assert np.abs(tE.numpy() - jE).max() <= 1e-9
+
+
+def _draws(P, rounds, seed):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(0, 1 << 30, (rounds, P, 2, trp.HYP_PER_ROUND),
+                         generator=g)
+
+
+def _successive_rounds(us, tab6, mask, counts, thr, E, c):
+    """The chunk as the parent ran it: the full tables' lift, then one
+    _ransac_round a round."""
+    lift = trp._lift(tab6.unbind(1))
+    for u in us:
+        E, c = trp._ransac_round(u, tab6, lift, mask, counts, thr, E, c)
+    return E, c
+
+
+def _chunk_start(P, dtype=torch.float64):
+    return (torch.zeros((P, 3, 3), dtype=dtype),
+            torch.zeros(P, dtype=torch.int64))
+
+
+def test_ransac_chunk_plain_is_successive_rounds(tables):
+    """Bit for bit, from a zero start and from a running best."""
+    tab, mask, counts, thr = (tables[k] for k in ("tab", "mask", "counts",
+                                                  "thr"))
+    tab6 = torch.stack(tab, 1)
+    P = tab6.shape[0]
+    us = _draws(P, 8, 11)
+    E0, c0 = _chunk_start(P)
+    ref = _successive_rounds(us, tab6, mask, counts, thr, E0, c0)
+    got = kernels.ransac_chunk_plain(us, tab6, mask, counts, thr, E0, c0)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert (got[1] > 0).all()
+    # from the running best: a second chunk on top of the first
+    us2 = _draws(P, 8, 12)
+    ref2 = _successive_rounds(us2, tab6, mask, counts, thr, *ref)
+    got2 = kernels.ransac_chunk(us2, tab6, mask, counts, thr, *got)
+    assert torch.equal(got2[0], ref2[0]) and torch.equal(got2[1], ref2[1])
+    assert (got2[1] >= got[1]).all()
+
+
+def _reversed_draws(u, counts):
+    """Draws whose samples are u's in reverse order: base b + 7 s and step
+    n - s, so the same 8 slots form another Gram sum."""
+    n = torch.clamp(counts, min=1)[:, None]
+    b = u[:, 0] % n
+    s = 1 + u[:, 1] % torch.clamp(n - 1, min=1)
+    return torch.stack([(b + 7 * s) % n, (n - s - 1) % torch.clamp(
+        n - 1, min=1)], 1)
+
+
+def test_ransac_chunk_tie_keeps_earlier_round(tables):
+    """Round 1 draws round 0's samples in reverse order: the same counts
+    (a tie on most pairs) from E that differ in their last bits. The tied
+    pairs keep the earlier round's E, whichever round comes first."""
+    tab, mask, counts, thr = (tables[k] for k in ("tab", "mask", "counts",
+                                                  "thr"))
+    tab6 = torch.stack(tab, 1)
+    P = tab6.shape[0]
+    u0 = _draws(P, 1, 21)[0]
+    u1 = _reversed_draws(u0, counts)
+    E0, c0 = _chunk_start(P)
+    Ea, ca = kernels.ransac_chunk_plain(u0[None], tab6, mask, counts, thr,
+                                        E0, c0)
+    Eb, cb = kernels.ransac_chunk_plain(u1[None], tab6, mask, counts, thr,
+                                        E0, c0)
+    tie = ca == cb
+    differ = (Ea != Eb).flatten(1).any(1)
+    assert (tie & differ).sum() >= 3, "no tie between distinct E"
+    for first, second, E_first in ((u0, u1, Ea), (u1, u0, Eb)):
+        E, c = kernels.ransac_chunk_plain(torch.stack([first, second]), tab6,
+                                          mask, counts, thr, E0, c0)
+        assert torch.equal(c, torch.maximum(ca, cb))
+        assert torch.equal(E[tie], E_first[tie])
+        assert torch.equal(E[ca > cb], Ea[ca > cb])
+        assert torch.equal(E[cb > ca], Eb[cb > ca])
+
+
+def test_ransac_chunk_other_cap_and_short_pairs(tables):
+    """cap 200 on the same scene, where every pair has fewer distinct
+    matches than slots (counts < cap, cyclic fill); odd pairs are cut
+    further to 100 distinct slots and masked on a third of their slots."""
+    tab, mask, counts = trp._pair_tables(tables["scene"], tables["vg"], 200,
+                                         1, "cpu", torch.float64)
+    assert (counts < 200).all() and (counts > 100).any()
+    counts = counts.clone()
+    counts[1::2] = torch.clamp(counts[1::2], max=100)
+    mask = mask.clone()
+    mask[1::2, ::3] = False
+    tab6 = torch.stack(tab, 1)
+    P = tab6.shape[0]
+    us = _draws(P, 8, 31)
+    E0, c0 = _chunk_start(P)
+    ref = _successive_rounds(us, tab6, mask, counts, tables["thr"], E0, c0)
+    got = kernels.ransac_chunk(us, tab6, mask, counts, tables["thr"], E0, c0)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert (got[1] > 0).all() and (got[1] <= mask.sum(1)).all()
 
 
 def test_choose_and_refine_match_jax(tables, rounds):
@@ -423,6 +530,43 @@ def test_pairs_with_too_few_matches_skip_hypothesis_loop():
         num_hypotheses=256), device="cpu")
     assert t_vg._relpose_budget[p_small] == 0
     assert (t_vg._relpose_budget[1:] > 0).all()
+
+
+def test_estimate_relative_poses_runs_the_parents_rounds(monkeypatch):
+    """estimate_relative_poses on the CPU against 8-round chunks of
+    _ransac_round on the draws the parent made: one torch.randint a round
+    and tile from one generator, in that order. The pair tiles are cut to
+    5 pairs so a chunk holds several. The same poses and budgets bit for
+    bit, and the "frontend/ransac" span counts no launch of B8."""
+    from glomap_tpu_torch.utils import profiling
+    scene, vg, _, _ = _wiped(SyntheticOptions(
+        num_frames_per_rig=6, num_points3D=100, seed=56,
+        point2D_stddev=0.5, inlier_match_ratio=0.7))
+    monkeypatch.setattr(trp, "TILE_PAIRS", 5)
+    opts = RelPoseEstimationOptions(num_hypotheses=256, max_iterations=2048)
+    runs = []
+    for reference in (False, True):
+        gen = torch.Generator().manual_seed(1)
+        calls = []
+
+        def parents(us, tab6, mask, counts, thr, E, c):
+            calls.append(us.shape[1])
+            for u in us:  # the parent's draws, in the parent's order
+                assert torch.equal(u, torch.randint(
+                    0, 1 << 30, u.shape, generator=gen))
+            return _successive_rounds(us, tab6, mask, counts, thr, E, c)
+        if reference:
+            monkeypatch.setattr(kernels, "ransac_chunk", parents)
+        v = vg.copy()
+        with profiling.recording() as records:
+            trp.estimate_relative_poses(scene, v, opts, device="cpu")
+        (rec,) = [r for r in records if r.name == "frontend/ransac"]
+        runs.append((v, rec.counts, calls))
+    (v, counts, _), (ref, ref_counts, calls) = runs
+    for k in ("pair_quat", "pair_trans", "_relpose_budget"):
+        np.testing.assert_array_equal(getattr(v, k), getattr(ref, k))
+    assert counts == ref_counts and counts["launches"] == 0
+    assert len(calls) > counts["chunks"] > 1 and max(calls) == 5
 
 
 def test_estimate_relative_poses_is_deterministic():
