@@ -2,9 +2,10 @@
 and a traffic mix's command, from a seed.
 
 A configuration file names its generator (`ring` or `loop`, the frozen
-copies in synthetic.py), the scene's sizes and, with `focal_scale`
-[lo, hi], a camera an image; a traffic file names the command users run
-and the input it reads:
+copies in synthetic.py, or `sequential`, the relative-pose graph of
+pose_graph.py), the scene's sizes and, with `focal_scale` [lo, hi], a
+camera an image; a traffic file names the command users run and the
+input it reads:
 
   mapper         a COLMAP database of the scene with every pair's
                  matches and two-view geometry (a seeded share of the
@@ -17,6 +18,13 @@ and the input it reads:
                  noise of `rotation_noise_deg` (root mean square),
                  centers and points off by `position_noise` times the
                  span of the truth's centers (normal, on each axis)
+  rotation_averager
+                 a relative-pose file of the configuration's `sequential`
+                 graph, its lines in an order drawn from the seed, and,
+                 where `gravity_share` > 0, a gravity file: that share of
+                 the images with a prior, off by a seeded noise of
+                 `gravity_noise_deg`, a `gravity_outlier_share` of them
+                 turned 90 deg away
 
 A traffic file's `options` are further flags of the command, as a user
 gives them (`--Module.option=value`).
@@ -37,11 +45,11 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from sfm_bench.gen import colmap_model, database, synthetic
+from sfm_bench.gen import colmap_model, database, pose_graph, synthetic
 from sfm_bench.gen import geometry as g
 
-GENERATORS = {"ring": synthetic.ring_scene, "loop": synthetic.loop_scene}
-COMMANDS = ("mapper", "mapper_resume")
+GENERATORS = {"ring": synthetic.ring_scene, "loop": synthetic.loop_scene,
+              "sequential": pose_graph.sequential_graph}
 # the raw parameters that are focal lengths, by camera model
 FOCAL_PARAMS = {g.SIMPLE_PINHOLE: [0], g.PINHOLE: [0, 1]}
 
@@ -49,7 +57,7 @@ FOCAL_PARAMS = {g.SIMPLE_PINHOLE: [0], g.PINHOLE: [0, 1]}
 @dataclass
 class Inputs:
     argv: list          # the command and its input, without --output_path
-    truth: synthetic.Synth
+    truth: synthetic.Synth | pose_graph.PoseGraph
 
 
 def seed_of(seed: int) -> int:
@@ -59,11 +67,18 @@ def seed_of(seed: int) -> int:
 
 def make_inputs(config: dict, traffic: dict, seed: int,
                 root: str) -> Inputs:
-    """Write the cell's input under directory `root`."""
+    """Write the cell's input under directory `root`, as the table of
+    commands (sfm_bench/commands.py) says for the mix's command."""
+    # the table names this module's writers, so it is imported here
+    from sfm_bench.commands import command
+    return command(traffic["command"]).make(config, traffic, seed_of(seed),
+                                            root)
+
+
+def model_inputs(config: dict, traffic: dict, s: int, root: str) -> Inputs:
+    """A COLMAP database (`mapper`) or model (`mapper_resume`) of the
+    configuration's scene under `root`."""
     command = traffic["command"]
-    if command not in COMMANDS:
-        raise ValueError(f"unknown command {command!r}")
-    s = seed_of(seed)
     synth = GENERATORS[config["generator"]](
         **config["scene"], seed=s, pairs=command == "mapper")
     if command == "mapper" and "pair_configs" in config:
@@ -84,6 +99,33 @@ def make_inputs(config: dict, traffic: dict, seed: int,
     path = os.path.join(root, "model")
     write_resume_model(path, synth, traffic, np.random.default_rng([s, 1]))
     return Inputs(["mapper_resume", "--input_path", path, *options], synth)
+
+
+def rotation_averager_inputs(config: dict, traffic: dict, s: int,
+                             root: str) -> Inputs:
+    """The relative-pose file (and gravity file) of the configuration's
+    graph under `root`: the lines' order from stream [s, 0], the gravity
+    priors from [s, 1]."""
+    graph = GENERATORS[config["generator"]](**config["scene"], seed=s)
+    if not isinstance(graph, pose_graph.PoseGraph):
+        raise ValueError(f"rotation_averager reads a pose graph, not a "
+                         f"{config['generator']!r} scene")
+    os.makedirs(root, exist_ok=True)
+    path = os.path.join(root, "relpose.txt")
+    order = np.random.default_rng([s, 0]).permutation(len(graph.pair_i))
+    pose_graph.write_rel_pose(path, graph, order)
+    argv = ["rotation_averager", "--relpose_path", path]
+    if traffic.get("gravity_share", 0) > 0:
+        images, priors = pose_graph.gravity_priors(
+            graph, traffic["gravity_share"],
+            traffic.get("gravity_noise_deg", 0.0),
+            traffic.get("gravity_outlier_share", 0.0),
+            np.random.default_rng([s, 1]))
+        gpath = os.path.join(root, "gravity.txt")
+        pose_graph.write_gravity(gpath, graph, images, priors)
+        graph.prior_images, graph.priors = images, priors
+        argv += ["--gravity_path", gpath]
+    return Inputs([*argv, *traffic.get("options", [])], graph)
 
 
 def camera_per_image(synth, focal_scale, rng) -> None:

@@ -35,6 +35,19 @@ and computes, for one model:
   focal_rel_err    the largest relative error of a registered image's
                    focal lengths against the truth's
 
+A file of global rotations (`rotation_averager`'s output, one line
+`NAME QW QX QY QZ` an image, cam_from_world) is judged by
+judge_rotations with its own parser:
+
+  unregistered     the images of the truth missing from the file
+  rot_err_max_deg, rot_err_med_deg
+                   as above, against the truth: how near the noise of
+                   the edges lets any answer come
+  opt_err_max_deg, opt_err_med_deg
+                   the same against the cost's own minimum in float64
+                   (reference/rotations.py): how near the program came
+                   to the answer its cost defines
+
 Nothing of the program is imported or called here.
 """
 
@@ -50,6 +63,9 @@ from sfm_bench.gen.colmap_model import Model, read_model
 KEYPOINT_TOL_PX = 1e-3
 COMPARED = ("explained", "unregistered", "reproj_max", "center_err_max",
             "rot_err_max_deg", "rot_err_med_deg")
+# the numbers judge_rotations gives, all compared
+ROTATIONS_COMPARED = ("unregistered", "rot_err_max_deg", "rot_err_med_deg",
+                      "opt_err_max_deg", "opt_err_med_deg")
 
 
 def rotation_angle_deg(R) -> np.ndarray:
@@ -72,6 +88,17 @@ def umeyama(src, dst):
     var = (xs * xs).sum() / len(src)
     s = np.trace(np.diag(D) @ S) / var
     return s, R, mu_d - s * R @ mu_s
+
+
+def aligned_rotation_errors_deg(Rm, Rg) -> np.ndarray:
+    """The angle of each of the rotations Rm (N, 3, 3) from the truth's
+    Rg after the one rotation Ra that best maps the model's frame onto
+    the truth's (R_model ~ R_truth Ra, the orthogonal Procrustes fit)."""
+    U, _, Vt = np.linalg.svd(np.einsum("nji,njk->ik", Rg, Rm))
+    S = np.eye(3)
+    S[2, 2] = np.sign(np.linalg.det(U @ Vt))
+    Ra = U @ S @ Vt
+    return rotation_angle_deg(np.einsum("nji,njk,lk->nil", Rg, Rm, Ra))
 
 
 def span(centers) -> float:
@@ -168,13 +195,8 @@ def judge_model(model: Model, truth) -> dict:
 
     qm = model.image_quat / np.linalg.norm(model.image_quat, axis=1,
                                            keepdims=True)
-    Rm = g.quat_to_rotmat(qm)
-    Rg = g.quat_to_rotmat(truth.image_quat[idx])
-    U, _, Vt = np.linalg.svd(np.einsum("nji,njk->ik", Rg, Rm))
-    S = np.eye(3)
-    S[2, 2] = np.sign(np.linalg.det(U @ Vt))
-    Ra = U @ S @ Vt  # R_model ~ R_truth Ra
-    rot = rotation_angle_deg(np.einsum("nji,njk,lk->nil", Rg, Rm, Ra))
+    rot = aligned_rotation_errors_deg(g.quat_to_rotmat(qm),
+                                      g.quat_to_rotmat(truth.image_quat[idx]))
 
     cm = g.pose_center(qm, model.image_trans)
     cg = truth.centers()[idx]
@@ -208,11 +230,56 @@ def judge(model_dir: str, truth) -> dict:
     return judge_model(read_model(model_dir), truth)
 
 
-def within(numbers: dict, limits: dict) -> dict:
+def read_rotations(path: str) -> dict:
+    """{image name: [qw, qx, qy, qz]} of a global-rotations file; a name
+    written twice maps to None."""
+    out = {}
+    with open(path) as f:
+        for line in f:
+            parts = line.split()
+            if not parts:
+                continue
+            name = parts[0]
+            q = [float(x) for x in parts[1:5]] if len(parts) == 5 else None
+            out[name] = None if name in out else q
+    return out
+
+
+def judge_rotations(path: str, truth, optimum) -> dict:
+    """The numbers of one file of global rotations against the truth's
+    `image_names` and `image_quat`, and against `optimum`, the cost's
+    minimum (N, 4) for the truth's images: a file that names an image
+    the truth does not have, names one twice, holds a malformed line or
+    rotations that are not finite reads infinitely far off."""
+    rotations = read_rotations(path)
+    index = {n: k for k, n in enumerate(truth.image_names)}
+    names = [n for n in rotations if n in index]
+    bad = len(names) < len(rotations) or not names or any(
+        rotations[n] is None for n in names)
+    out = {"unregistered": truth.num_images - len(names),
+           "registered": len(names), "images": truth.num_images}
+    for k in ROTATIONS_COMPARED[1:]:
+        out[k] = float("inf")
+    if bad:
+        return out
+    q = np.asarray([rotations[n] for n in names], np.float64)
+    if not np.isfinite(q).all() or not (np.linalg.norm(q, axis=1) > 0).all():
+        return out
+    Rm = g.quat_to_rotmat(q / np.linalg.norm(q, axis=1, keepdims=True))
+    rows = [index[n] for n in names]
+    for key, qref in (("rot", truth.image_quat), ("opt", optimum)):
+        err = aligned_rotation_errors_deg(
+            Rm, g.quat_to_rotmat(np.asarray(qref, np.float64)[rows]))
+        out[f"{key}_err_max_deg"] = float(err.max())
+        out[f"{key}_err_med_deg"] = float(np.median(err))
+    return out
+
+
+def within(numbers: dict, limits: dict, compared=COMPARED) -> dict:
     """{name: (value, limit, ok)} of each compared number: `explained`
     is a floor, the others are ceilings."""
     out = {}
-    for name in COMPARED:
+    for name in compared:
         v, lim = numbers[name], limits[name]
         ok = v >= lim if name == "explained" else v <= lim
         out[name] = (v, lim, bool(ok and np.isfinite(v)))

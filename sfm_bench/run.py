@@ -9,26 +9,34 @@ sfm_bench/workloads/<cell>.json, its configuration in configs/ and its
 traffic mix in traffic/, then:
 
 1. makes the cell's input from the seed (a COLMAP database for `mapper`,
-   a binary COLMAP model for `mapper_resume`; gen/inputs.py) under a
-   fresh directory of TMPDIR;
+   a binary COLMAP model for `mapper_resume`, a relative-pose file and
+   perhaps a gravity file for `rotation_averager`; gen/inputs.py) under
+   a fresh directory of TMPDIR;
 2. warms up: builds the port's CUDA kernels where they are not built
    yet (build/torch_kernels/ in the checkout) and runs one
    reconstruction of that input, untimed;
 3. runs whole reconstructions back to back, each one call of the port's
-   own entry point, glomap_tpu_torch.cli.main(["mapper" or
-   "mapper_resume", ..., "--output_path", <dir>]), until --seconds have
-   passed; the reconstruction in flight then is finished and counted;
-4. judges every model the window wrote with the plain NumPy reference
-   (reference/judge.py) and prints one JSON line as the last line of
-   standard output, the numbers it compared and their limits as the last
-   lines of standard error.
+   own entry point, glomap_tpu_torch.cli.main([<command>, ...,
+   "--output_path", <dir>]) (for rotation_averager a file in <dir>),
+   until --seconds have passed; the reconstruction in flight then is
+   finished and counted;
+4. judges everything the window wrote with the plain reference, as the
+   table of commands (commands.py) says: a model by reference/judge.py's
+   judge, a file of global rotations by judge_rotations against the
+   truth and against the cost's float64 minimum (reference/
+   rotations.py, worked out once the window has closed); takes the worst
+   of each number the command compares, and prints one JSON line as the
+   last line of standard output, the numbers it compared and their
+   limits as the last lines of standard error. A cell's `limits` hold
+   exactly the command's numbers, or the run stops before it starts.
 
 With --trace 0 the line holds the end-to-end metrics: setup_s (process
 start to the first timed reconstruction) and recon_s (the window's wall
 time over the reconstructions it completed). With --trace 1 the
 window runs under torch.profiler with the stage spans and kernel
 launches collected (trace.py), and the line holds every per-layer
-metric whose reader in metrics/ finds something to read.
+metric whose reader in metrics/ finds something to read (none, where
+the command logs no stage and records none of the spans they read).
 
 Without a CUDA card, or with fewer than the cell asks for, it prints no
 result and exits 2. If a module of JAX or of the JAX package is loaded
@@ -57,6 +65,7 @@ ROOT = Path(__file__).resolve().parent.parent
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
+from sfm_bench.commands import command  # noqa: E402
 from sfm_bench.gen.inputs import make_inputs  # noqa: E402
 from sfm_bench.reference import judge as ref  # noqa: E402
 
@@ -112,10 +121,16 @@ def process_age_s() -> float:
 
 
 def reconstruct(cli, argv, out_dir, device=None) -> int:
-    """One call of the port's entry point; its stdout goes to stderr."""
+    """One call of the port's entry point, writing into directory
+    `out_dir`; its stdout goes to stderr."""
     extra = ["--device", device] if device else []
+    out = Path(out_dir)
+    name = command(argv[0]).output
+    if name:
+        out.mkdir(parents=True, exist_ok=True)
+        out = out / name
     with contextlib.redirect_stdout(sys.stderr):
-        return cli.main([*argv, "--output_path", str(out_dir), *extra])
+        return cli.main([*argv, "--output_path", str(out), *extra])
 
 
 def run(name: str, seed: int, seconds: float, trace: bool, device=None,
@@ -129,6 +144,8 @@ def run(name: str, seed: int, seconds: float, trace: bool, device=None,
     from sfm_bench import trace as tr
 
     cell, config, traffic = load_cell(name, bench)
+    cmd = command(traffic["command"])
+    limited(cell["limits"], cmd.compared)
     cuda = device is None
     work = Path(tempfile.mkdtemp(prefix="sfm_bench-"))
     try:
@@ -203,10 +220,16 @@ def run(name: str, seed: int, seconds: float, trace: bool, device=None,
         if cuda:
             torch.cuda.empty_cache()
 
-        # the reference judges every model once the window has closed
-        judged = [ref.judge(str(out / "0"), inputs.truth)
+        # the reference judges every output once the window has closed
+        answer = None
+        if cmd.answer and any(rc == 0 for _, rc in outs):
+            t_ref = time.perf_counter()
+            answer = cmd.answer(inputs.truth)
+            print(f"reference: its answer in "
+                  f"{time.perf_counter() - t_ref:.2f} s", file=sys.stderr)
+        judged = [cmd.judge(Path(out) / cmd.output, inputs.truth, answer)
                   for out, rc in outs if rc == 0]
-        checks = worst(judged, cell["limits"])
+        checks = worst(judged, cell["limits"], cmd.compared)
         if not trace:
             metrics = {"recon_s": {"value": window_s / len(outs),
                                    "unit": "s"},
@@ -225,15 +248,24 @@ def run(name: str, seed: int, seconds: float, trace: bool, device=None,
         shutil.rmtree(work, ignore_errors=True)
 
 
-def worst(judged: list, limits: dict) -> dict:
-    """The worst of each compared number over the window's models, with
-    its limit and whether it holds."""
+def limited(limits: dict, compared: tuple) -> None:
+    """Raise unless `limits` holds a limit for each compared number and
+    for nothing else."""
+    if set(limits) != set(compared):
+        raise ValueError(f"the cell's limits {sorted(limits)} are not the "
+                         f"command's numbers {sorted(compared)}")
+
+
+def worst(judged: list, limits: dict, compared: tuple) -> dict:
+    """The worst of each compared number over the window's outputs (the
+    smallest `explained`, the largest of every other), with its limit
+    and whether it holds."""
+    limited(limits, compared)
     if not judged:
-        return {k: (float("nan"), limits[k], False) for k in ref.COMPARED}
-    agg = {"explained": min(j["explained"] for j in judged)}
-    for k in ref.COMPARED[1:]:
-        agg[k] = max(j[k] for j in judged)
-    return ref.within(agg, limits)
+        return {k: (float("nan"), limits[k], False) for k in compared}
+    agg = {k: (min if k == "explained" else max)(j[k] for j in judged)
+           for k in compared}
+    return ref.within(agg, limits, compared)
 
 
 class ForbiddenModules(RuntimeError):

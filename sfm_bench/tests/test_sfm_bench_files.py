@@ -95,15 +95,23 @@ def test_every_data_file_parses():
             obj = json.loads(path.read_text())
             assert NAME.match(path.stem)
             if kind == "workloads":
+                from sfm_bench.commands import COMMANDS
                 from sfm_bench.run import load_cell
                 cell, config, traffic = load_cell(path.stem)
-                from sfm_bench.reference.judge import COMPARED
-                assert set(cell["limits"]) == set(COMPARED)
-                assert traffic["command"] in ("mapper", "mapper_resume")
+                assert traffic["command"] in COMMANDS
+                assert set(cell["limits"]) == set(
+                    COMMANDS[traffic["command"]].compared)
                 assert config["name"] == cell["config"]
             if kind == "configs":
-                assert obj["name"] == path.stem and obj["reduced"] == []
+                assert obj["name"] == path.stem
                 assert LINE.match(obj["source"])
+                # a cut of scale names the scene's keys it changed and
+                # says how; a configuration without one changed none
+                assert set(obj["reduced"]) <= set(obj["scene"])
+                if obj["reduced"]:
+                    assert isinstance(obj["cut"], str) and obj["cut"]
+                else:
+                    assert "cut" not in obj
 
 
 def test_new_files_are_found_without_edits(tiny_bench):
@@ -129,9 +137,32 @@ def test_new_files_are_found_without_edits(tiny_bench):
         'LAYER = "controller"\nUNIT = "1"\nMOVES = "recon_s"\n\n\n'
         'def read(trace):\n'
         '    return len(trace.stages) / trace.recons\n')
+    # a rotation_averager configuration, traffic mix and cell
+    graph = json.loads((bench / "configs/tiny-graph.json").read_text())
+    graph.update(name="tiny-graph-sparse")
+    graph["scene"].update(degree=4, span=10)
+    write_json(bench / "configs/tiny-graph-sparse.json", graph)
+    write_json(bench / "traffic/rotations-refined.json",
+               {"command": "rotation_averager", "gravity_share": 0.9,
+                "gravity_noise_deg": 0.2, "gravity_outlier_share": 0.1,
+                "options": ["--refine_gravity"]})
+    cell = json.loads((bench / "workloads/tiny-graph.rotations.json")
+                      .read_text())
+    cell.update(config="tiny-graph-sparse", traffic="rotations-refined")
+    write_json(bench / "workloads/tiny-graph-sparse.rotations-refined.json",
+               cell)
     for p, data in before.items():
         assert p.read_bytes() == data
     c, cfg, tr = load_cell("tiny-ring-noisy.resume-far", bench)
     assert cfg["scene"]["point2D_stddev"] == 1.0
     assert tr["rotation_noise_deg"] == 0.5
     assert "stages_per_recon" in metric_readers(bench)
+    from sfm_bench.gen.inputs import make_inputs
+    c, cfg, tr = load_cell("tiny-graph-sparse.rotations-refined", bench)
+    inp = make_inputs(cfg, tr, 9, str(bench.parent / "graph_input"))
+    assert inp.argv[0] == "rotation_averager"
+    assert inp.argv[-3:-1] == ["--gravity_path",
+                               str(bench.parent / "graph_input/gravity.txt")]
+    assert inp.argv[-1] == "--refine_gravity"
+    assert len((bench.parent / "graph_input/gravity.txt").read_text()
+               .splitlines()) == 180

@@ -3,6 +3,11 @@ from the same seed, and files the port reads back as written."""
 
 from __future__ import annotations
 
+import hashlib
+import json
+import sqlite3
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -10,7 +15,7 @@ from sfm_bench.gen import colmap_model, database, synthetic
 from sfm_bench.gen.inputs import make_inputs
 from sfm_bench.run import load_cell
 
-from conftest import CELL
+from conftest import CELL, TINY_SCENE, ring
 
 SEEDS = (3, 2**31 + 5)
 RING = dict(num_frames=12, num_points3D=200, point2D_stddev=0.5,
@@ -227,3 +232,62 @@ def test_reordered_database_keeps_the_geometry(tmp_path):
         np.testing.assert_array_equal(
             scene.kp_xy[scene.kp_offset[i]:scene.kp_offset[i + 1]],
             s.kp_xy[s.kp_offset[k]:s.kp_offset[k + 1]].astype(np.float32))
+
+
+# Digests of make_inputs on the tiny ring configuration (tests/conftest.py)
+# by traffic mix and seed, taken before the harness took its third
+# command, `rotation_averager`: (the input: its argv with the root
+# replaced, the model's file bytes, the database's table rows, since
+# SQLite's file bytes need not be stable across its versions; the judge's
+# numbers of the truth and of its bfloat16 copy)
+PARENT_DIGESTS = {
+    ("mapper", 3): (
+        "6ffa7bfe0957b8923c6f0b23732943113d25a545261c9d18a9089ee5acc9a2eb",
+        "b3d7bb0239fc05880d7ea3bfc508d8fe76a1e2ab0fb99cde66308fb3c1d7e659"),
+    ("mapper", 2**40 + 7): (
+        "32b2a977a0b082daa057d5be8d21b52c8ad0ce7908e191a28e4ac5d2b8d2d693",
+        "3ecf7d7e583cbaf7925e30e756db2ec59d84794db73e848ae588530b2c8ada66"),
+    ("resume", 3): (
+        "1aa1422a29390e02e2af782d1f350de2e0457298cf08e74f635c55a75192e375",
+        "b3d7bb0239fc05880d7ea3bfc508d8fe76a1e2ab0fb99cde66308fb3c1d7e659"),
+    ("resume", 2**40 + 7): (
+        "3e001c7f65d7b67f1f7420a94fb388bfae545756f746db8659a1f2264fd0e7b9",
+        "3ecf7d7e583cbaf7925e30e756db2ec59d84794db73e848ae588530b2c8ada66"),
+}
+
+
+def input_digest(argv, root: str) -> str:
+    h = hashlib.sha256()
+    h.update(json.dumps([a.replace(root, "<root>") for a in argv]).encode())
+    for path in sorted(p for p in Path(root).rglob("*") if p.is_file()):
+        h.update(str(path.relative_to(root)).encode())
+        if path.suffix != ".db":
+            h.update(path.read_bytes())
+            continue
+        db = sqlite3.connect(path)
+        try:
+            for (t,) in db.execute("SELECT name FROM sqlite_master WHERE "
+                                   "type='table' ORDER BY name"):
+                h.update(t.encode())
+                for row in db.execute(f"SELECT * FROM {t} ORDER BY rowid"):
+                    h.update(repr(row).encode())
+        finally:
+            db.close()
+    return h.hexdigest()
+
+
+@pytest.mark.parametrize("traffic,seed", list(PARENT_DIGESTS))
+def test_model_commands_inputs_and_judge_are_unchanged(tmp_path, traffic,
+                                                       seed):
+    """mapper's and mapper_resume's inputs for a seed, and the judge's
+    numbers of them, are those of the harness before its third command."""
+    from sfm_bench.reference import judge as ref
+    config, mix = ring(traffic)
+    config["scene"].update(TINY_SCENE)
+    inp = make_inputs(config, mix, seed, str(tmp_path))
+    truth = ref.truth_model(inp.truth)
+    nums = [ref.judge_model(m, inp.truth)
+            for m in (truth, ref.bf16_model(truth))]
+    assert (input_digest(inp.argv, str(tmp_path)), hashlib.sha256(
+        json.dumps(nums, sort_keys=True).encode()).hexdigest()) == \
+        PARENT_DIGESTS[traffic, seed]

@@ -50,18 +50,30 @@ from sfm_bench import run, controls, trace, roofline
 from sfm_bench.gen.inputs import make_inputs
 from sfm_bench.reference import judge as ref
 sys.path.insert(0, {tests!r})
-from conftest import ring
-config, traffic = ring({traffic!r})
-config["scene"].update(num_frames=10, num_points3D=200)
-inp = make_inputs(config, traffic, 7, {tmp!r})
-nums = ref.judge_model(ref.truth_model(inp.truth), inp.truth)
-assert nums["explained"] == 1.0, nums
+from conftest import GRAPH_TRAFFIC, TINY_GRAPH, ring
+if {traffic!r} in GRAPH_TRAFFIC:
+    inp = make_inputs(TINY_GRAPH, GRAPH_TRAFFIC[{traffic!r}], 7, {tmp!r})
+    path = {tmp!r} + "/rotations.txt"
+    with open(path, "w") as f:
+        for n, q in zip(inp.truth.image_names, inp.truth.image_quat.tolist()):
+            f.write(n + " " + " ".join(map(repr, q)) + "\\n")
+    from sfm_bench.reference import rotations
+    nums = ref.judge_rotations(path, inp.truth,
+                               rotations.optimum(inp.truth)[0])
+    assert nums["rot_err_max_deg"] < 1e-9, nums
+else:
+    config, traffic = ring({traffic!r})
+    config["scene"].update(num_frames=10, num_points3D=200)
+    inp = make_inputs(config, traffic, 7, {tmp!r})
+    nums = ref.judge_model(ref.truth_model(inp.truth), inp.truth)
+    assert nums["explained"] == 1.0, nums
 run.metric_readers()
 print(sorted(m for m in sys.modules if m.split(".")[0] in {names!r}))
 """
 
 
-@pytest.mark.parametrize("traffic", ["mapper", "resume"])
+@pytest.mark.parametrize("traffic", ["mapper", "resume",
+                                     "rotations-gravity"])
 def test_harness_loads_nothing_of_jax(tmp_path, traffic):
     code = REHEARSAL.format(root=str(ROOT), tests=str(BENCH / "tests"),
                             tmp=str(tmp_path),
